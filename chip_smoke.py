@@ -28,7 +28,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    lower bounds and costs must agree;
 7. the single-instance path: ``rightsize(instance 0, "lp-map-f",
    backend="kernel")`` with the fleet's LP result, which launches the B=1 fit
-   kernel through ``TypePool.find_fit``; its cost must equal the fleet's.
+   kernel through ``TypePool.find_fit``; its cost must equal the fleet's;
+8. the compiled placement stepper: the same fleet through
+   ``FleetEngine(solver=SolverConfig(operator="dense"),
+   placement=PlacementConfig(engine="compiled")).evaluate``, with the launch
+   counts set to 0 just before and read just after: stepper launches must
+   equal the telemetry's dispatches (both modes, no fallback, at most
+   6 + 6 * 2m) and every cost must equal the kernel-free batched run's
+   (phase 6, the same dense LP).  Then, on that run's LP results, every
+   ``place_many`` call of the protocol once with the numpy lockstep engine
+   and once compiled under ``torch.profiler`` (the compiled placement's
+   device idle share): every ``assign`` and purchase must be equal.  Then
+   the stepper's every dispatch of the four lp-map placements (first and
+   similarity fit, filling off and on) is replayed on the kernel and on its
+   plain version (``ref.sub_phase_ref``): node choices, counts,
+   infeasibility steps and the pool must be bit-equal; the type-parallel and
+   the largest wave dispatch are timed (kernel, plain version, bound).
+   Phase 5 also times the G=1 congestion launch (``congestion``, the
+   reference's ``congestion_pallas``) at n=1000, T'=24, K=5 against
+   ``torch.bmm``.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -50,9 +68,11 @@ import time
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and non-tensor-core f32 rate
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and non-tensor-core f32 and
+# f64 rates
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 
 CONG_RTOL = CONG_ATOL = 1e-5   # float32 sums in another order
 FIT_RTOL = FIT_ATOL = 1e-5     # dot / norm: float32 sums in another order
@@ -67,6 +87,10 @@ SOURCES = {
                         "src/repro/kernels/fit.py:184"),
     "fit_scores": ("src/repro_torch/kernels/csrc/fit.cu",
                    "src/repro/kernels/fit.py:104"),
+    # the redesign of fit_scores_many for the compiled path: the scan body
+    # of the reference's stepper with its scorer, ops.fit_scores_step
+    "place_step": ("src/repro_torch/kernels/csrc/place_step.cu",
+                   "src/repro/core/place_step.py:168"),
 }
 
 
@@ -235,9 +259,10 @@ def host_ms(torch, fn, reps: int = 200, warmup: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -253,24 +278,31 @@ def timing_line(name, info) -> str:
 
 class Recorder:
     """Wraps a kernel wrapper to keep each distinct call shape's first
-    inputs (cloned) and the number of calls per shape; the wrapped
-    function still counts its own launches."""
+    inputs (cloned before the call) and the number of calls per shape, or
+    with ``every`` every call's inputs in ``log``; the wrapped function
+    still counts its own launches."""
 
-    def __init__(self, torch, module, name):
+    def __init__(self, torch, module, name, every: bool = False):
         self.torch, self.module, self.name = torch, module, name
         self.orig = getattr(module, name)
         self.calls = collections.Counter()
         self.inputs = {}
+        self.every = every
+        self.log = []
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         key = tuple(tuple(a.shape) if hasattr(a, "shape") else a
                     for a in args)
         self.calls[key] += 1
-        if key not in self.inputs:
-            self.inputs[key] = tuple(
-                a.clone() if isinstance(a, self.torch.Tensor) else a
-                for a in args)
-        return self.orig(*args)
+        if self.every or key not in self.inputs:
+            saved = tuple(a.clone() if isinstance(a, self.torch.Tensor) else a
+                          for a in args)
+            if self.every:
+                self.log.append((saved, {k: v for k, v in kwargs.items()
+                                         if k != "telemetry"}))
+            else:
+                self.inputs[key] = saved
+        return self.orig(*args, **kwargs)
 
     @property
     def launches(self):
@@ -369,6 +401,243 @@ def edge_checks(torch, ref, cong, fit, dev) -> dict:
     log("edges: a margin of exactly float32(-1e-7) is feasible, the next "
         "float32 below is not")
     return dict(err)
+
+
+def protocol_calls(batch, lp_results, fits):
+    """The (algo, fit, filling, mappings) of every ``place_many`` call the
+    batched protocol makes for the four paper algorithms, in its order."""
+    from repro_torch.core import penalty_map
+
+    for algo in ("penalty-map", "penalty-map-f", "lp-map", "lp-map-f"):
+        if algo.startswith("penalty-map"):
+            mapsets = [[penalty_map(t, kind) for t in batch.problems]
+                       for kind in ("avg", "max")]
+        else:
+            mapsets = [[r.mapping for r in lp_results]]
+        for maps in mapsets:
+            for fit in fits:
+                yield algo, fit, algo.endswith("-f"), maps
+
+
+def stepper_work(args, kwargs, out) -> tuple[float, float]:
+    """(bytes, float64 operations) one stepper launch needs on these inputs
+    and its result.  Bytes: each lane's live attempts (``lens``, not the
+    padded L) read once from the sequences, the per-lane operands read once,
+    the node counts, infeasibility steps and every (L, A) node choice
+    written once, each open pool row read once and each row the sub-phase
+    debited written once.  Operations: per live step, every open node's span
+    elements compared (and with similarity divided, multiplied twice and
+    summed twice), the chosen row's span debited."""
+    import numpy as np
+
+    pool, w, lens, dem, s_seq, e_seq = args[:6]
+    A, _, K = pool.shape
+    L, _, D = dem.shape
+    res = out.cpu().numpy()
+    w_fin, j_rec = res[:A].astype(np.int64), res[2 * A:].reshape(L, A)
+    span = ((e_seq - s_seq + 1) * D).cpu().numpy().astype(np.float64)
+    w_now = w.cpu().numpy().astype(np.int64)
+    lens = lens.cpu().numpy()
+    per_elem = 6.0 if kwargs["similarity"] else 1.0
+    ops = 0.0
+    for step in range(L):
+        active = step < lens
+        live = j_rec[step] >= 0
+        ops += float((w_now * span[step] * per_elem)[active].sum()) \
+            + float(span[step][live].sum())
+        if kwargs["purchase"]:
+            w_now = w_now + (live & (j_rec[step] == w_now))
+    lane, node = np.nonzero(j_rec.T >= 0)
+    debited = len(set(zip(lane.tolist(), j_rec.T[lane, node].tolist())))
+    nbytes = (float(lens.sum()) * (D * 8 + 4 + 4 + 8)   # dem, s, e, dn
+              + A * (4 + 4 + 2 * D * 8)                # w, lens, capx, cap
+              + A * (4 + 4) + L * A * 4                # w, bad, j_rec out
+              + (float(w_fin.sum()) + debited) * K * 8)
+    return nbytes, ops
+
+
+def compiled_phase(torch, np, ref, kernels, fleet, spec, res_np, tm, tn,
+                   report) -> dict:
+    """Phase 8: the compiled placement stepper on the fleet (see the module
+    docstring).  Returns the stepper's main-path launches and its entry of
+    the kernels line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import (FIT_POLICIES, FleetEngine, PlacementConfig,
+                                  SolverConfig, place_many)
+    from repro_torch.kernels import place_step as kstep
+
+    engine = FleetEngine(solver=SolverConfig(operator="dense"),
+                         placement=PlacementConfig(engine="compiled"))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.evaluate(fleet)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    tc = res.timings
+    pc = tc["placement"]
+    log(f"compiled: wall {wall:.3f} s; LP {tc['lp_s']:.3f} s, placement "
+        f"{tc['place_s']:.3f} s; launches {launches}; telemetry {pc}")
+    most = 6 + 6 * 2 * spec.m
+    if pc["fallbacks"] != 0:
+        raise AssertionError(f"compiled stepper fell back {pc['fallbacks']}x")
+    if not 0 < launches["place_step"] == pc["dispatches"] <= most:
+        raise AssertionError(
+            f"stepper launches {launches['place_step']} vs dispatches "
+            f"{pc['dispatches']} (must be equal, > 0 and <= {most})")
+    if pc["modes"] != ["type-parallel", "wave-sequential"]:
+        raise AssertionError(f"stepper modes {pc['modes']}")
+    if any(v for k, v in launches.items() if k != "place_step"):
+        raise AssertionError(f"the compiled placement launched {launches}")
+    flips = []
+    for i, (a, b) in enumerate(zip(res.entries, res_np.entries)):
+        same_map = np.array_equal(res.lp_results[i].mapping,
+                                  res_np.lp_results[i].mapping)
+        for algo, c in a["costs"].items():
+            if c == b["costs"][algo]:
+                continue
+            if algo.startswith("lp-map") and not same_map:
+                flips.append((i, algo))
+                continue
+            raise AssertionError(
+                f"instance {i} {algo}: compiled cost {c} vs batched numpy "
+                f"{b['costs'][algo]}")
+    log(f"compiled: every cost equals the batched numpy run's "
+        f"({len(flips)} lp-map differences from LP mappings that differ "
+        f"between the two dense solves: {flips})")
+    log(f"compiled: placement seconds side by side: compiled "
+        f"{tc['place_s']:.6f}, batched numpy {tn['place_s']:.6f}, batched "
+        f"kernel {tm['place_s']:.6f}")
+
+    # every protocol call on this run's LP results: numpy lockstep vs the
+    # compiled stepper (profiled), assign and purchases bit-equal
+    bucket = res.plan.buckets[0]
+    if res.plan.n_buckets != 1:
+        raise AssertionError("the Table-I fleet must pack into one bucket")
+    batch = bucket.batch
+    lp = [res.lp_results[i] for i in bucket.indices]
+    calls = list(protocol_calls(batch, lp, FIT_POLICIES))
+    t0 = time.perf_counter()
+    sols_np = [place_many(batch, maps, fit=fit, filling=filling)
+               for _, fit, filling, maps in calls]
+    np_s = time.perf_counter() - t0
+    tels = [{} for _ in calls]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sols_c = [place_many(batch, maps, fit=fit, filling=filling,
+                             placement="compiled", telemetry=tel)
+                  for (_, fit, filling, maps), tel in zip(calls, tels)]
+        torch.cuda.synchronize()
+        comp_s = time.perf_counter() - t0
+    for (algo, fit, filling, _), a, b in zip(calls, sols_c, sols_np):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if not (np.array_equal(x.assign, y.assign)
+                    and np.array_equal(x.node_type, y.node_type)):
+                raise AssertionError(
+                    f"{algo} {fit} instance {i}: compiled placement differs "
+                    f"from the numpy lockstep engine's")
+    merged, per_name, _ = device_intervals(prof)
+    busy = busy_s(merged)
+    step_dev = sum(v for k, v in per_name.items() if "place_step" in k)
+    n_disp = sum(t["dispatches"] for t in tels)
+    idle = 1.0 - busy / comp_s if busy > 0 else None
+    log(f"compiled: {len(calls)} protocol calls, every assign and purchase "
+        f"equal; numpy lockstep {np_s:.6f} s, compiled (profiled) "
+        f"{comp_s:.6f} s, {n_disp} launches; device busy {busy:.6f} s, idle "
+        f"share {idle if idle is None else f'{idle:.4f}'}; stepper device "
+        f"time {step_dev:.6f} s ({step_dev * 1e3 / max(n_disp, 1):.6f} ms "
+        f"per launch)")
+
+    # every dispatch of the four lp-map placements, kernel vs plain
+    rec = Recorder(torch, kstep, "sub_phase", every=True)
+    lp_maps = [r.mapping for r in lp]
+    with rec:
+        modes = []
+        for fit in FIT_POLICIES:
+            for filling in (False, True):
+                tel = {}
+                place_many(batch, lp_maps, fit=fit, filling=filling,
+                           placement="compiled", telemetry=tel)
+                modes += [(tel["mode"], fit)] * tel["dispatches"]
+    t0 = time.perf_counter()
+    pool_err, mismatches = 0.0, 0
+    for (args, kw), (mode, fit) in zip(rec.log, modes):
+        got_args = [a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        want_args = [a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args]
+        got = kstep.sub_phase(*got_args, **kw)
+        want = ref.sub_phase_ref(*want_args, kw["purchase"],
+                                 kw["similarity"])
+        torch.cuda.synchronize()
+        p_got, p_want = got_args[0], want_args[0]
+        diff = torch.where(p_got == p_want, 0.0, (p_got - p_want).abs())
+        err = float(diff.max())
+        bad_out = int((got != want).sum())
+        pool_err, mismatches = max(pool_err, err), mismatches + bad_out
+        if bad_out or not torch.equal(p_got, p_want):
+            raise AssertionError(
+                f"stepper {mode} {fit} at pool {tuple(args[0].shape)}, "
+                f"L={args[3].shape[0]}: kernel differs from plain version "
+                f"(max |pool err| {err}, {bad_out} of [w|bad|j_rec] differ)")
+    check_s = time.perf_counter() - t0
+    log(f"compiled: {len(rec.log)} lp-map dispatches of all {len(fleet)} "
+        f"instances replayed, kernel bit-equal to the plain version: max "
+        f"|pool err| {pool_err}, {mismatches} of [w|bad|j_rec] differ "
+        f"({check_s:.1f} s)")
+
+    def timed(idx):
+        args, kw = rec.log[idx]
+        pools = [args[0].clone() for _ in range(24)]
+        it = iter(pools)
+        ms = device_ms(torch, lambda: kstep.sub_phase(next(it), *args[1:],
+                                                      **kw),
+                       reps=20, warmup=4)
+        pools_r = [args[0].clone() for _ in range(4)]
+        it_r = iter(pools_r)
+        plain = device_ms(torch, lambda: ref.sub_phase_ref(
+            next(it_r), *args[1:], kw["purchase"], kw["similarity"]),
+            reps=3, warmup=1)
+        out = kstep.sub_phase(args[0].clone(), *args[1:], **kw)
+        b_ms, b_by = bound(*stepper_work(args, kw, out), PEAK_F64_FLOPS)
+        pool = args[0]
+        return {"shape": {"A": pool.shape[0], "n_cap": pool.shape[1],
+                          "K": pool.shape[2], "L": args[3].shape[0],
+                          "D": args[3].shape[2]},
+                "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                "bound_by": b_by}
+
+    # the type-parallel similarity dispatch and the largest wave dispatch
+    tp = next(i for i, m in enumerate(modes)
+              if m == ("type-parallel", "similarity"))
+    wave = max((i for i, m in enumerate(modes) if m[0] != "type-parallel"),
+               key=lambda i: rec.log[i][0][0].shape[0]
+               * rec.log[i][0][3].shape[0])
+    per_mode = {"type-parallel": timed(tp), "wave-sequential": timed(wave)}
+    for mode, info in per_mode.items():
+        log(f"timing: place_step {mode} at {info['shape']}: device ms per "
+            f"launch: kernel {info['ms']:.6f}, plain {info['plain_ms']:.6f},"
+            f" bound {info['bound_ms']:.3e} ({info['bound_by']})")
+    log(f"timing: place_step main path: {launches['place_step']} launches "
+        f"(evaluate), {n_disp} in the profiled protocol at "
+        f"{step_dev * 1e3 / max(n_disp, 1):.6f} device ms each")
+    main = per_mode["type-parallel"]
+    report["compiled"] = {
+        "wall_s": wall, "timings": tc, "launches": launches, "flips": flips,
+        "entries": res.entries, "protocol": {
+            "calls": len(calls), "numpy_s": np_s, "compiled_s": comp_s,
+            "dispatches": n_disp, "device_busy_s": busy, "idle_share": idle,
+            "stepper_device_s": step_dev},
+        "checked_dispatches": len(rec.log), "check_s": check_s,
+        "max_pool_err": pool_err, "mismatches": mismatches,
+        "per_mode": per_mode,
+    }
+    # no single PyTorch call places
+    return {"launches": launches, "kinfo": dict(
+        main, max_abs_err=pool_err, mismatches=mismatches, library_ms=None,
+        calls=n_disp)}
 
 
 def main(argv=None) -> int:
@@ -533,6 +802,33 @@ def main(argv=None) -> int:
             torch, lambda: cong.congestion_many(start, end, w, T)),
     }
 
+    # the G=1 launch (the reference's congestion_pallas) at one instance's
+    # own tasks: n=1000, T'=24, K=5
+    p0 = fleet[0]
+    s1c = torch.as_tensor(p0.start, dtype=torch.int32, device=dev)
+    e1c = torch.as_tensor(p0.end, dtype=torch.int32, device=dev)
+    w1c = torch.as_tensor(p0.dem, dtype=torch.float32, device=dev)
+    T1c = int(p0.T)
+    e_g1 = check_congestion(torch, ref, cong, s1c[None], e1c[None], w1c[None],
+                            T1c, "G=1")
+    t_ids = torch.arange(T1c, device=dev, dtype=torch.int32)
+    mask1c = ((s1c[None, :] <= t_ids[:, None])
+              & (t_ids[:, None] <= e1c[None, :])).float()[None]
+    n1c, K1c = w1c.shape
+    b_ms, b_by = bound(n1c * (8 + 4 * K1c) + T1c * K1c * 4,
+                       2.0 * T1c * n1c * K1c)
+    kinfo["congestion"] = {
+        "shape": {"G": 1, "n": n1c, "T": T1c, "K": K1c}, "calls": 0,
+        "max_abs_err": e_g1,
+        "ms": device_ms(torch, lambda: cong.congestion(s1c, e1c, w1c, T1c)),
+        "plain_ms": device_ms(
+            torch, lambda: ref.congestion_ref(s1c, e1c, w1c, T1c)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(torch, lambda: torch.bmm(mask1c, w1c[None])),
+        "call_ms": cuda_ms(
+            torch, lambda: cong.congestion(s1c, e1c, w1c, T1c)),
+    }
+
     calls_f = sum(rec_f.calls.values())
     e_f = max(check_fit(torch, ref, fit, *a, "main-path input")
               for a in rec_f.inputs.values())
@@ -659,8 +955,13 @@ def main(argv=None) -> int:
     report["single"] = {"cost": cost1, "wall_s": single_s,
                         "launches": launches_1}
 
+    # 8. the compiled placement stepper
+    stepper = compiled_phase(torch, np, ref, kernels, fleet, spec, res_np,
+                             tm, tn, report)
+    kinfo["place_step"] = stepper["kinfo"]
+
     runs = {"congestion_many": launches, "fit_scores_many": launches,
-            "fit_scores": launches_1}
+            "fit_scores": launches_1, "place_step": stepper["launches"]}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": runs[name][name],

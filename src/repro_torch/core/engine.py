@@ -8,9 +8,11 @@ paper's §VI protocol over a fleet of instances on one device:
                           operator form (``dense``/``cumsum``/``pallas``,
                           the last one the hand-written CUDA kernel).
   * ``PlacementConfig`` — greedy phase: the numpy lockstep engine
-                          (``batched``) or the per-instance loop
-                          (``loop``), the fit-policy scan, and the scoring
-                          backend (``kernel`` = the CUDA fit kernel).
+                          (``batched``), the compiled stepper
+                          (``compiled``: one CUDA launch per sub-phase) or
+                          the per-instance loop (``loop``), the fit-policy
+                          scan, and the scoring backend (``kernel`` = the
+                          CUDA fit kernel).
   * ``SweepConfig``     — fleet shape: shape-bucketed packing and the
                           shard size of the LP dispatch.
   * ``FleetEngine``     — ``pack(problems)``, ``solve(...)``,
@@ -19,15 +21,14 @@ paper's §VI protocol over a fleet of instances on one device:
 
 Ported from ``repro.core.engine``.  What this port does not have yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it: tolerance
-mode (``SolverConfig(tol=...)``, Queue 1 item 6), the compiled placement
-stepper (``PlacementConfig(engine="compiled")``, item 7), warm-started and
+mode (``SolverConfig(tol=...)``, Queue 1 item 6), warm-started and
 pipelined sweeps (``SweepConfig(warm_start=, pipeline=, devices=)``,
 item 6), scenario groups (``solve_scenarios``, item 11), and instances with
 active constraints (item 8).
 
-``device`` (None = the CUDA card) is where the LP solve runs and where the
-``kernel`` backend scores placements; the placement bookkeeping stays
-float64 numpy on the host.
+``device`` (None = the CUDA card) is where the LP solve runs, where the
+``kernel`` backend scores placements and where the compiled stepper keeps
+its pools; the placement bookkeeping stays float64 numpy on the host.
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ __all__ = [
 ]
 
 _PLACEMENT_ENGINES = ("batched", "compiled", "loop")
+# the place_many stepper behind each batched placement engine
+_ENGINE_STEPPER = {"batched": "lockstep", "compiled": "compiled"}
 _PLACEMENT_BACKENDS = ("numpy", "kernel")
 
 # Planner cost of one extra shape bucket, as a fraction of the
@@ -111,9 +114,10 @@ class PlacementConfig:
     """Greedy placement phase configuration.
 
     engine='batched' advances all instances in lockstep (``place_many``);
-    'loop' runs the per-instance ``two_phase`` loop; 'compiled' (the
-    on-device stepper) is ROADMAP Queue 1, item 7.  Placements and costs
-    are identical across engines.  fit='best' scans every fit policy and
+    'compiled' runs the same lockstep as one CUDA stepper launch per
+    node-type sub-phase (``place_many(placement='compiled')``); 'loop' runs
+    the per-instance ``two_phase`` loop.  Placements and costs are
+    identical across engines.  fit='best' scans every fit policy and
     keeps the per-instance minimum (the paper's §VI protocol); a concrete
     policy narrows the scan.  ``filling`` only applies to direct
     ``FleetEngine.place`` calls.  ``backend='kernel'`` scores placements
@@ -135,9 +139,6 @@ class PlacementConfig:
             raise ValueError(
                 f"placement engine must be one of {_PLACEMENT_ENGINES}, "
                 f"got {self.engine!r}")
-        if self.engine == "compiled":
-            raise _not_ported(
-                "the compiled placement stepper (engine='compiled')", "7")
         if self.fit != "best" and self.fit not in FIT_POLICIES:
             raise ValueError(
                 f"fit must be 'best' or one of {FIT_POLICIES}, "
@@ -427,6 +428,7 @@ class FleetResult:
 
 def _protocol_batched(batch: ProblemBatch, lp_results, algos, fits,
                       backend: str, device, check: bool = True,
+                      stepper: str = "lockstep",
                       tels: list | None = None) -> list[dict]:
     """Batched placement protocol: every (mapping, fit, filling) combo of
     every algorithm runs as ONE lockstep ``place_many`` over the grid;
@@ -460,7 +462,8 @@ def _protocol_batched(batch: ProblemBatch, lp_results, algos, fits,
                 tel: dict = {}
                 sols = place_many(batch, maps, fit=fit, filling=filling,
                                   backend=backend, meta={"algo": algo},
-                                  telemetry=tel, device=device)
+                                  placement=stepper, telemetry=tel,
+                                  device=device)
                 if tels is not None:
                     tels.append(tel)
                 for b, (t, s) in enumerate(zip(batch.problems, sols)):
@@ -482,13 +485,21 @@ def _protocol_batched(batch: ProblemBatch, lp_results, algos, fits,
 
 def _placement_telemetry(engine: str, tels: list) -> dict:
     """Aggregate per-call stepper telemetry into the ``FleetResult``
-    timings block: which engine ran, how many calls and waves, and the
-    summed per-wave seconds."""
+    timings block: which engine ran, how many calls and waves, the summed
+    per-wave seconds and, for the compiled stepper, its device dispatches,
+    how often it fell back, the modes it ran in and the lanes whose open
+    rows outgrew the kernel's shared memory."""
     out: dict = {"engine": engine, "calls": len(tels)}
     if engine == "loop" or not tels:
         return out
     out["waves"] = max((t.get("waves", 0) for t in tels), default=0)
     out["wave_s_total"] = sum(sum(t.get("wave_s", ())) for t in tels)
+    if engine == "compiled":
+        out["dispatches"] = sum(t.get("dispatches", 0) for t in tels)
+        out["fallbacks"] = sum(1 for t in tels
+                               if t.get("engine") != "compiled")
+        out["modes"] = sorted({t["mode"] for t in tels if "mode" in t})
+        out["spilled_lanes"] = sum(t.get("spilled_lanes", 0) for t in tels)
     return out
 
 
@@ -696,7 +707,9 @@ class FleetEngine:
                 else pack_problems(self._trimmed(problems),
                                    assume_trimmed=True)
             sols = place_many(batch, mappings, fit=fit, filling=filling,
-                              backend=cfg.backend, device=self.device)
+                              backend=cfg.backend,
+                              placement=_ENGINE_STEPPER[cfg.engine],
+                              device=self.device)
         if lows is not None:
             sols = [expand_solution(low, s) for low, s in zip(lows, sols)]
         return sols
@@ -705,10 +718,12 @@ class FleetEngine:
                          tels: list | None = None):
         """§VI protocol entries for one packed bucket."""
         cfg = self.placement
-        if cfg.engine == "batched":
+        if cfg.engine in _ENGINE_STEPPER:
             return _protocol_batched(batch, lp_results, self.algos,
                                      cfg.fits, cfg.backend, self.device,
-                                     check=cfg.check, tels=tels)
+                                     check=cfg.check,
+                                     stepper=_ENGINE_STEPPER[cfg.engine],
+                                     tels=tels)
         from .api import _protocol_entry
 
         return [_protocol_entry(t, res, res.lower_bound, self.algos,

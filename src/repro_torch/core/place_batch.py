@@ -21,8 +21,10 @@ similarity scores to 9 decimals before the first-max argmax.
 fit kernel (``repro_torch.kernels.fit.fit_scores_many``, float32, one launch
 per lockstep step) on ``device``: the pool window is copied to the device
 on each call, and only the scores come back.  ``backend='numpy'`` is the
-bit-exact host path.  The compiled on-device stepper
-(``placement='compiled'``) is ROADMAP Queue 1, item 7.
+bit-exact host path.  ``placement='compiled'`` runs the compiled stepper
+(``place_step.run_compiled``: one kernel launch per sub-phase, the pools on
+``device``), which places identically; when its padded pool would be
+oversized it declines and this module's engine runs instead.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ __all__ = ["place_many", "PLACEMENT_STEPPERS"]
 
 # The lockstep stepper implementations behind ``place_many(placement=)``:
 # 'lockstep' is this module's vectorized-numpy engine (one host dispatch
-# per placement step); 'compiled' (the on-device stepper) is not ported yet.
+# per placement step); 'compiled' is the on-device stepper
+# (``place_step.run_compiled``: one dispatch per node-type sub-phase).
 PLACEMENT_STEPPERS = ("lockstep", "compiled")
 
 
@@ -391,11 +394,16 @@ def place_many(problems, mappings, fit: str = "first",
     ``Solution`` per instance, equal (node purchases, ``assign``, cost)
     to ``two_phase(batch.problems[b], mappings[b], fit, filling)``.
 
-    ``placement='lockstep'`` is this module's engine; ``'compiled'`` (the
-    on-device stepper) raises ``NotImplementedError`` (ROADMAP Queue 1,
-    item 7).  ``backend='kernel'`` scores on ``device`` (None = the CUDA
-    card).  ``telemetry``, when a dict, is filled in place with the
-    stepper used, the wave count and per-wave seconds.
+    ``placement='lockstep'`` is this module's engine; ``'compiled'`` runs
+    every sub-phase as one launch of the CUDA stepper on ``device`` (its
+    plain version on the CPU); on the CPU only, it falls back to this
+    module's engine when the padded pool would exceed
+    ``place_step.MAX_POOL_CELLS`` (``backend`` applies to that fallback
+    only).  ``backend='kernel'``
+    scores on ``device`` (None = the CUDA card).  ``telemetry``, when a
+    dict, is filled in place with the stepper used (``"lockstep-fallback"``
+    when the compiled stepper declined), the wave count and per-wave
+    seconds, and for the compiled stepper its mode and dispatches.
 
     >>> import numpy as np
     >>> from repro_torch.core import place_many, two_phase
@@ -417,10 +425,6 @@ def place_many(problems, mappings, fit: str = "first",
         raise ValueError(
             f"placement must be one of {PLACEMENT_STEPPERS}, "
             f"got {placement!r}")
-    if placement == "compiled":
-        raise NotImplementedError(
-            "the compiled placement stepper is not ported yet (ROADMAP "
-            "Queue 1, item 7); use placement='lockstep'")
     dev = resolve_device(device)
     batch = problems if isinstance(problems, ProblemBatch) \
         else pack_problems(problems)
@@ -428,6 +432,16 @@ def place_many(problems, mappings, fit: str = "first",
         raise ValueError("need exactly one mapping per instance")
     phases = [_phases(t, np.asarray(mp, np.int64), fit, filling)
               for t, mp in zip(batch.problems, mappings)]
+    if placement == "compiled":
+        from . import place_step
+
+        sols = place_step.run_compiled(batch, phases, fit=fit,
+                                       filling=filling, meta=meta,
+                                       telemetry=telemetry, device=dev)
+        if sols is not None:
+            return sols
+        # pool over the CPU's cap: place_step declined (and recorded why
+        # in telemetry); fall through to the numpy lockstep engine
     eng = _Engine(batch, phases, backend, device=dev)
     wave_s = []
     k = 0

@@ -5,6 +5,8 @@ host-facing wrappers.
                    (``csrc/congestion.cu``).
 * ``fit``        — placement feasibility and similarity scoring over all
                    open nodes (``csrc/fit.cu``), batched and single-instance.
+* ``place_step`` — the compiled placement stepper: every step of one
+                   placement sub-phase in one launch (``csrc/place_step.cu``).
 
 ``ref`` holds the plain versions, ``ops`` the host-facing API with the
 reference's signatures, ``build`` the nvcc build.  ``launch_counts`` reads
@@ -14,6 +16,7 @@ each wrapper's launch count and ``reset_launch_counts`` sets them to 0.
 from . import ops, ref
 from .congestion import congestion_many
 from .fit import fit_scores, fit_scores_many
+from .place_step import sub_phase
 
 __all__ = ["ops", "ref", "WRAPPERS", "launch_counts", "reset_launch_counts"]
 
@@ -22,6 +25,7 @@ WRAPPERS = {
     "congestion_many": congestion_many,
     "fit_scores_many": fit_scores_many,
     "fit_scores": fit_scores,
+    "place_step": sub_phase,
 }
 
 

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, which is loaded with ``ctypes``.
 Builds happen at first use, from the sources in the checkout only, into
-``build/kernels/`` at the repository root.  A library's file name carries a
+``build/kernels/`` at the repository root, with the flags every source
+shares plus its own (``EXTRA_FLAGS``).  A library's file name carries a
 hash of its source and flags, so an edited source is rebuilt and a stale
 library is never loaded.  ``build_all`` compiles every source at once, one
 ``nvcc`` process per file, all started together.
@@ -26,13 +27,17 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "nvcc_path"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("congestion", "fit")
+SOURCES = ("congestion", "fit", "place_step")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
+# the placement stepper must repeat the numpy engine's float64 operations
+# bit for bit, so nvcc may not contract a * b + c into a fused multiply-add
+EXTRA_FLAGS = {"place_step": ("-fmad=false",)}
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_double
 # argtypes of each library's C entry points (every pointer and the stream
 # as c_void_p, so ctypes never narrows them to 32 bits)
 SIGNATURES = {
@@ -44,6 +49,11 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _C),
         "fit_scores_launch": (_C, _C, _C, _I, _I, _C, _C, _C,
                               _I, _I, _I, _C),
+    },
+    "place_step": {
+        "place_step_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _F,
+                              _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _C, _C),
     },
 }
 
@@ -70,9 +80,14 @@ def nvcc_path() -> str:
         "toolkit (set CUDA_HOME)")
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(
+        src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
@@ -84,7 +99,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, out, tmp

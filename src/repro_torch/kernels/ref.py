@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["congestion_ref", "congestion_many_ref", "fit_scores_ref",
-           "fit_scores_many_ref", "span_mask"]
+           "fit_scores_many_ref", "span_mask", "sub_phase_ref"]
+
+_EPS = 1e-7  # the placement engines' feasibility slack
 
 
 def congestion_ref(start, end, w, T: int):
@@ -68,3 +70,75 @@ def fit_scores_many_ref(rem, dem, mask, inv_cap):
     dot = torch.einsum("bntd,bd,bt->bn", rem_n, dem_n, mask)
     rem_norm2 = torch.einsum("bntd,bntd,bt->bn", rem_n, rem_n, mask)
     return feas_margin, dot, rem_norm2
+
+
+def sub_phase_ref(pool, w, lens, dem_seq, s_seq, e_seq, dn_seq, capx,
+                  cap_rows, quantum: float, purchase: bool,
+                  similarity: bool):
+    """One placement sub-phase, step by step: the compiled stepper's scan
+    body (``repro.core.place_step``) as a Python loop over attempt steps,
+    every lane at once, in float64.
+
+    pool: (A, n_cap, K) remaining capacity of each lane's nodes, slot
+    k = t * D + d, every row cap-initialized; updated in place.  w, lens:
+    (A,) int32 open-node counts and attempt-list lengths.  dem_seq (L, A, D)
+    float64, s_seq / e_seq (L, A) int32 inclusive spans, dn_seq (L, A)
+    float64 demand norms.  capx (A, D) capacity, +inf on padded dims;
+    cap_rows (A, D) capacity with 1.0 on padded dims.
+
+    Returns one int32 tensor ``[w (A) | bad (A) | j_rec (L * A)]``: the
+    final open-node counts, each lane's first step whose task cannot fit
+    the node-type (-1 = none), and the (L, A) pool-local node each step
+    placed into (-1 = no placement).
+    """
+    A, n_cap, K = pool.shape
+    L, _, D = dem_seq.shape
+    T = K // D
+    dev = pool.device
+    out = torch.full((2 * A + L * A,), -1, dtype=torch.int32, device=dev)
+    j_rec = out[2 * A:].view(L, A)
+    w = w.to(torch.int64)
+    bad = torch.full((A,), -1, dtype=torch.int64, device=dev)
+    lanes = torch.arange(A, device=dev)
+    node_ids = torch.arange(n_cap, device=dev)
+    t_ids = torch.arange(T, device=dev)
+    capx_k = capx.repeat(1, T)
+    for step in range(L):
+        active = step < lens
+        dem = dem_seq[step]
+        dem_k = dem.repeat(1, T)
+        span = ((s_seq[step][:, None] <= t_ids)
+                & (t_ids <= e_seq[step][:, None]))
+        span_k = span.repeat_interleave(D, dim=1)
+        thr = dem_k - _EPS
+        viol = ((pool < thr[:, None, :]) & span_k[:, None, :]).any(dim=2)
+        feas = ~viol & (node_ids < w[:, None]) & active[:, None]
+        has = feas.any(dim=1)
+        if similarity:
+            span_f = span_k.to(pool.dtype)
+            rem_n = pool / capx_k[:, None, :]
+            q = (dem_k / capx_k) * span_f
+            dot = (rem_n * q[:, None, :]).sum(dim=2)
+            rm = rem_n * span_f[:, None, :]
+            norm2 = (rm * rm).sum(dim=2)
+            score = dot / (dn_seq[step][:, None] * torch.sqrt(norm2) + 1e-30)
+            score = torch.round(score * quantum) / quantum
+            choice = torch.where(feas, score, -torch.inf).argmax(dim=1)
+        else:
+            choice = feas.to(torch.int8).argmax(dim=1)
+        if purchase:
+            buy = ~has & active
+            bad_now = buy & (dem > cap_rows + _EPS).any(dim=1)
+            bad = torch.where(bad_now & (bad < 0), step, bad)
+            j = torch.where(has, choice, w)
+            placed = active
+            w = w + buy.to(torch.int64)
+        else:
+            j = choice
+            placed = has
+        rows, cols = lanes[placed], j[placed]
+        pool[rows, cols] -= (dem_k * span_k.to(pool.dtype))[placed]
+        j_rec[step] = torch.where(placed, j, -1).to(torch.int32)
+    out[:A] = w.to(torch.int32)
+    out[A: 2 * A] = bad.to(torch.int32)
+    return out

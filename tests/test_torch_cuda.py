@@ -8,7 +8,8 @@ Every test here is marked ``cuda`` and skips, with its reason, where no card
 is visible; whether a card is present is decided inside a fixture, so every
 pytest worker collects the same tests.  This file imports no JAX.
 Tolerances: congestion rtol/atol 1e-5; fit margin bit-equal, dot/norm
-rtol/atol 1e-5.
+rtol/atol 1e-5; the placement stepper bit-equal (node choices, counts and
+the pool after the sub-phase).
 """
 
 import pytest
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.kernels import congestion as cong
 from repro_torch.kernels import fit, ref
+from repro_torch.kernels import place_step as kstep
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +119,107 @@ def test_fleet_path_launches_both_batched_kernels(dev):
                         device="cpu").evaluate(fleet)
     for a, b in zip(res.entries, plain.entries):
         assert a["lb"] == pytest.approx(b["lb"], rel=1e-4)
+
+
+def _sub_phase_inputs(g, A, L, T, D, dem_scale, w0_max, purchase):
+    """A random sub-phase: A lanes of up to L start-sorted attempts over T
+    slots, the last dimension padded (+inf capacity, zero demand)."""
+    f64 = torch.float64
+    cap = 0.5 + torch.rand((A, D), generator=g, dtype=f64)
+    cap[:, -1] = 1.0
+    capx = cap.clone()
+    capx[:, -1] = torch.inf
+    dem = torch.rand((L, A, D), generator=g, dtype=f64) * dem_scale
+    dem[..., -1] = 0.0
+    s = torch.sort(torch.randint(0, T, (L, A), generator=g), dim=0).values
+    e = torch.clamp(s + torch.randint(0, T // 2 + 1, (L, A), generator=g),
+                    max=T - 1)
+    dn = 0.5 + torch.rand((L, A), generator=g, dtype=f64)
+    lens = torch.randint(0, L + 1, (A,), generator=g).to(torch.int32)
+    w = torch.randint(0, w0_max + 1, (A,), generator=g).to(torch.int32)
+    n_cap = w0_max + (L if purchase else 0)
+    pool = cap.repeat(1, T)[:, None, :].expand(A, n_cap, T * D).clone()
+    if not purchase:  # open rows already partly used
+        pool -= torch.rand(pool.shape, generator=g, dtype=f64) * 0.3
+    rows = n_cap if purchase else w0_max
+    return [pool, w, lens, dem, s.to(torch.int32), e.to(torch.int32), dn,
+            capx, cap], rows
+
+
+@pytest.mark.parametrize("similarity", [False, True])
+@pytest.mark.parametrize("A,L,T,D,dem_scale,w0_max,purchase", [
+    (1, 1, 1, 2, 0.3, 0, True),
+    (160, 120, 24, 6, 0.3, 0, True),      # type-parallel width
+    (16, 300, 24, 6, 0.2, 0, True),       # wave width, long lists
+    (16, 200, 24, 6, 0.2, 40, False),     # cross-fill into open rows
+    (3, 60, 300, 9, 0.6, 0, True),        # rows of 21.6 KB: most spill
+])
+def test_place_step_matches_plain(dev, similarity, A, L, T, D, dem_scale,
+                                  w0_max, purchase):
+    g = torch.Generator().manual_seed(A * 31 + L + D)
+    args, rows = _sub_phase_inputs(g, A, L, T, D, dem_scale, w0_max,
+                                   purchase)
+    want_args = [t.to(dev) for t in args]
+    got_args = [t.to(dev) for t in args]
+    want = ref.sub_phase_ref(*want_args, 1e9, purchase, similarity)
+    before = kstep.sub_phase.launches
+    info = {}
+    got = kstep.sub_phase(*got_args, 1e9, purchase, similarity, rows=rows,
+                          telemetry=info)
+    torch.cuda.synchronize()
+    assert kstep.sub_phase.launches == before + 1
+    assert 0 <= info["smem_rows"] <= rows
+    assert torch.equal(got, want)
+    assert torch.equal(got_args[0], want_args[0])
+    if T == 300:
+        assert int(got[:A].max()) > info["smem_rows"]  # the spill path ran
+
+
+def test_compiled_placement_on_the_card(dev):
+    import numpy as np
+
+    from repro_torch.core import penalty_map, place_many
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.workload import SyntheticSpec, synthetic_instance
+
+    fleet = [synthetic_instance(SyntheticSpec(n=80, m=4, D=3, T=12, seed=s))
+             for s in range(4)]
+    maps = [penalty_map(p, "avg") for p in fleet]
+    for fit in ("first", "similarity"):
+        for filling in (False, True):
+            tel = {}
+            reset_launch_counts()
+            got = place_many(fleet, maps, fit=fit, filling=filling,
+                             placement="compiled", telemetry=tel)
+            assert launch_counts()["place_step"] == tel["dispatches"] > 0
+            want = place_many(fleet, maps, fit=fit, filling=filling,
+                              device="cpu")
+            for a, b in zip(got, want):
+                assert np.array_equal(a.assign, b.assign)
+                assert np.array_equal(a.node_type, b.node_type)
+
+
+def test_compiled_placement_has_no_pool_cap_on_the_card(dev, monkeypatch):
+    import numpy as np
+
+    from repro_torch.core import penalty_map, place_many
+    from repro_torch.core import place_step as core_step
+    from repro_torch.workload import SyntheticSpec, synthetic_instance
+
+    # the CPU's cell cap sends a CPU call to the numpy engine; on the card
+    # the stepper runs whatever the pool's size
+    monkeypatch.setattr(core_step, "MAX_POOL_CELLS", 0)
+    fleet = [synthetic_instance(SyntheticSpec(n=40, m=3, D=2, T=10, seed=s))
+             for s in range(2)]
+    maps = [penalty_map(p, "avg") for p in fleet]
+    for filling in (False, True):
+        tel = {}
+        got = place_many(fleet, maps, filling=filling, placement="compiled",
+                         telemetry=tel)
+        assert tel["engine"] == "compiled" and "fallback" not in tel
+        assert tel["mode"] == ("wave-sequential" if filling
+                               else "type-parallel")
+        want = place_many(fleet, maps, filling=filling, device="cpu")
+        for a, b in zip(got, want):
+            assert np.array_equal(a.assign, b.assign)
+            assert np.array_equal(a.node_type, b.node_type)

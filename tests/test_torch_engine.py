@@ -139,8 +139,7 @@ def test_synthetic_generator_is_identical():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         SolverConfig(tol=5e-3)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PlacementConfig(engine="compiled")
+    assert PlacementConfig(engine="compiled").engine == "compiled"
     for kw in ({"warm_start": 2}, {"pipeline": True}, {"devices": 1}):
         with pytest.raises(NotImplementedError, match="item 6"):
             SweepConfig(**kw)

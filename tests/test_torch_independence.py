@@ -34,10 +34,11 @@ def test_package_has_the_slice_modules():
                  "core/engine.py", "core/place_batch.py",
                  "kernels/congestion.py", "kernels/fit.py",
                  "kernels/ops.py", "kernels/ref.py", "kernels/build.py",
-                 "workload/synthetic.py"):
+                 "workload/synthetic.py", "core/place_step.py",
+                 "kernels/place_step.py"):
         assert name in rel, name
-    assert (PKG / "kernels" / "csrc" / "congestion.cu").is_file()
-    assert (PKG / "kernels" / "csrc" / "fit.cu").is_file()
+    for src in ("congestion.cu", "fit.cu", "place_step.cu"):
+        assert (PKG / "kernels" / "csrc" / src).is_file(), src
 
 
 @pytest.mark.parametrize("path", MODULES + [REPO / "chip_smoke.py"],

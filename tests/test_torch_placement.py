@@ -102,8 +102,13 @@ def test_telemetry_and_compiled_stepper(small):
     tel = {}
     t_place_many(tgrid, maps, telemetry=tel, device="cpu")
     assert tel["engine"] == "lockstep" and tel["waves"] == 3
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_place_many(tgrid, maps, placement="compiled", device="cpu")
+    want = place_many(grid, maps, fit="similarity")
+    tel = {}
+    got = t_place_many(tgrid, maps, fit="similarity", placement="compiled",
+                       telemetry=tel, device="cpu")
+    assert tel["engine"] == "compiled" and tel["dispatches"] == 1
+    for g, w, p in zip(got, want, grid):
+        _same(g, w, p)
 
 
 def test_bad_mapping_raises(small):
