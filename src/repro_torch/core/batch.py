@@ -253,18 +253,11 @@ def _make_operators(w_all, start, end, Tp: int, operator: str):
         return fwd_all, adj_cumsum
 
     if operator == "pallas":
-        from ..kernels.congestion import congestion_many
+        from ..kernels.congestion import congestion_lp
 
-        # one (B*m)-group kernel launch per forward: group g = b*m + type
-        start_g = start.repeat_interleave(m, dim=0).contiguous()
-        end_g = end.repeat_interleave(m, dim=0).contiguous()
-        w_g = w_all.permute(0, 2, 1, 3).reshape(B * m, n, D)
-
+        # one kernel launch per forward, on the LP's own layouts
         def fwd_all(xv):
-            x_g = xv.permute(0, 2, 1).reshape(B * m, n)
-            cong = congestion_many(start_g, end_g,
-                                   (w_g * x_g[:, :, None]).contiguous(), Tp)
-            return cong.reshape(B, m, Tp, D).permute(0, 2, 1, 3)
+            return congestion_lp(start, end, w_all, xv, Tp)
         return fwd_all, adj_cumsum  # adjoint of the same linear map
 
     raise ValueError(f"unknown operator {operator!r}")

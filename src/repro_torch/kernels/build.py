@@ -43,6 +43,9 @@ _F = ctypes.c_double
 SIGNATURES = {
     "congestion": {
         "congestion_many_launch": (_C, _C, _C, _C, _I, _I, _I, _I, _C),
+        "congestion_lp_launch": (_C, _C, _C, _C, _C, _I, _I, _I, _I, _I,
+                                 _C),
+        "congestion_plan": (_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)),
     },
     "fit": {
         "fit_scores_many_launch": (_C, _C, _C, _C, _C, _C, _C, _C,

@@ -1,123 +1,412 @@
-// Interval-congestion kernel for Hopper (sm_90a).
+// Interval-congestion kernel for Hopper (sm_90a): one kernel, two entries.
 //
-// Replaces: src/repro/kernels/congestion.py : congestion_many_pallas (and its
-// G=1 wrapper congestion_pallas), the forward map of the LP solver's
-// congestion operator (src/repro/core/batch.py, operator="pallas").
+// Replaces: src/repro/kernels/congestion.py : congestion_many_pallas (its
+// pallas_call at :110) and its G=1 wrapper congestion_pallas (:37), the
+// forward map of the LP solver's congestion operator.  On the reference's
+// operator="pallas" route (src/repro/core/batch.py) XLA fused a permute, the
+// product x * w and an m-fold repeat of the spans around that call; eager
+// PyTorch fuses nothing, so the second entry does all of it in the launch.
 //
-//   out[g, t, k] = sum_u [start[g,u] <= t <= end[g,u]] * w[g, u, k]
+//   out[b, t, c] = sum_u [start[b,u] <= t <= end[b,u]] * x[b,u,c/D] * w[b,u,c]
 //
-// start, end: (G, n) int32; w: (G, n, K) float32; out: (G, T, K) float32,
-// all contiguous.  Accumulation is float32.
+// start, end: (B, n) int32; w: (B, n, C) float32 with C = m * D columns (the
+// LP's (B, n, m, D) weights); x: (B, n, m) float32, or null for x = 1;
+// out: (B, T, C) float32, i.e. the LP's (B, T', m, D).  All contiguous.
+// congestion_many_launch is the TPU contract: m = 1, D = K, no x.  The
+// product x * w rounds once, as in the plain version; sums are float32.
 //
-// What bounds it on this card: on the solver's path K = D is 2..5 and T is a
-// trimmed timeline of a few dozen slots, so the output is tiny and the work is
-// one pass over w (G*n*K floats) plus the spans; the kernel is bound by the
-// bytes it reads (and, at these sizes, by launch latency), not by arithmetic.
-// The mask-matmul has 2*G*T*n*K operations, far below the card's f32 rate.
+// What bounds it on this card: on the LP's path C = m*D = 50 and T' = 24, so
+// one apply reads the spans, x and w once (about 4 MB at B=16, n=1000) and
+// writes 77 KB; its 2*B*T'*n*C masked adds are far below the f32 rate.  The
+// least time is set by those bytes; at these sizes a launch is bound by its
+// latency chain (stage, add, reduce) and by the instructions of one CTA's
+// share of the tasks.
 //
-// What the design does about it: the TPU kernel padded K to 128 lanes for its
-// matrix unit; at K <= 5 that is almost all padding, so here K is not padded
-// at all.  One block owns one (group, 32-slot tile): lane = time slot, warp =
-// a slice of the tasks.  The block stages chunks of start/end/w in shared
-// memory (read once from device memory, then broadcast to all 32 slots), each
-// thread accumulates up to KC output columns in registers, and the warps'
-// partial sums are added in shared memory at the end.  The activity mask is
-// never written anywhere, as on the TPU.  Padding tasks (start=1, end=0, or
-// any span with zero weight) add exact zeros.
+// What the design does about it:
+// * The task axis is split over W task groups inside a CTA and then over a
+//   thread-block cluster of S <= 8 CTAs (the portable size); the host picks
+//   W and S so that about 16 warps per SM are in flight.  Each CTA stages
+//   its slice's spans, x and w once into shared memory with asynchronous
+//   copies (cp.async) of the contiguous slabs, issued before any is waited
+//   for, and turns each span into a 32-bit mask of the task's active slots
+//   in the CTA's time tile (the mask is never stored in device memory, as on
+//   the TPU).
+// * A thread owns one column c and R slots {ph, ph + P, ...} of the tile
+//   (R = 8, 4, 2 or 1; the host picks the largest that keeps the warps'
+//   lanes busy), so one product x*w, read from shared memory, feeds R
+//   predicated adds held in registers; a batch of tasks' reads is issued
+//   before its adds.  Nothing is padded: K and T' < 32 idle no lane beyond
+//   the last warp's rounding.
+// * Long timelines are tiled over T' (32 slots per tile, fewer when C is
+//   wide), never over C.
+// * Partial sums are added in a fixed order, so the result is deterministic:
+//   task groups in group order, then the cluster's ranks in rank order.
+//   Each CTA stores its partials into the shared memory of the rank that
+//   finishes them (distributed shared memory) and the cluster meets at one
+//   barrier; no float atomics, no second launch, and no CTA's shared memory
+//   is read after that barrier, so none has to wait for its peers to exit.
+// * Padding is exact: a task with start > end (the TPU contract's [1, 0])
+//   has an empty mask; the LP's padded tasks carry zero weight.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kSlots = 32;     // time slots per block (one per lane)
-constexpr int kWarps = 8;      // task slices per block
-constexpr int kChunk = 256;    // tasks staged in shared memory per round
-constexpr int kKC = 8;         // output columns accumulated per pass
+constexpr int kMaxThreads = 256;
+constexpr int kMaxCluster = 8;      // the portable cluster size
+constexpr int kTileT = 32;          // slots per tile: one mask word per task
+constexpr int kPartFloats = 8192;   // partial sums per CTA (32 KB)
+constexpr int kStageFloats = 8192;  // staged w (and x) per chunk (32 KB)
+constexpr int kMinTasks = 8;        // fewest tasks per cluster rank and group
+constexpr int kWarpsPerSM = 16;     // warps in flight per SM the split aims at
+constexpr int kBatch = 8;           // tasks whose reads are issued together
 
-__global__ void __launch_bounds__(kSlots * kWarps)
+// 4-byte asynchronous copy global -> shared (cp.async): a thread issues all
+// of its copies of a chunk before it waits for any
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                     : "memory");
+}
+
+// the two halves of a cluster barrier; arrive without ordering (relaxed),
+// or releasing this thread's writes to the peers that wait (acquire)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <int R, bool kX>
+__global__ void __launch_bounds__(kMaxThreads)
 congestion_many_kernel(const int32_t* __restrict__ start,
                        const int32_t* __restrict__ end,
+                       const float* __restrict__ x,
                        const float* __restrict__ w,
                        float* __restrict__ out,
-                       int n, int T, int K, int t_tiles) {
-    __shared__ int32_t s_start[kChunk];
-    __shared__ int32_t s_end[kChunk];
-    __shared__ float s_w[kChunk * kKC];
-    __shared__ float s_red[kWarps][kKC][kSlots];
+                       int n, int m, int D, int T, int t_tile, int t_tiles,
+                       int P, int W, int unit_pad, int slice, int chunk) {
+    // peers store into this CTA's shared memory only after every CTA of
+    // the cluster has started: arrive now, wait before the first store
+    cluster_arrive_relaxed();
+    extern __shared__ float smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int S = static_cast<int>(cluster.num_blocks());
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int C = m * D;
+    const int row = blockIdx.x / S;
+    const int b = row / t_tiles;
+    const int t0 = (row % t_tiles) * t_tile;
+    const int t_eff = min(t_tile, T - t0);
+    const int tc = t_tile * C;  // partial sums of one task group
+    const int n_out = t_eff * C;
+    const int share = (n_out + S - 1) / S;  // outputs each rank finishes
 
-    const int g = blockIdx.x / t_tiles;
-    const int t0 = (blockIdx.x % t_tiles) * kSlots;
-    const int lane = threadIdx.x % kSlots;
-    const int warp = threadIdx.x / kSlots;
-    const int t = t0 + lane;
+    float* part = smem;                                          // W * tc
+    float* recv = part + W * tc;                                 // S * share
+    auto* s_mask = reinterpret_cast<uint32_t*>(recv + S * share);  // chunk
+    auto* s_end = reinterpret_cast<int32_t*>(s_mask + chunk);    // chunk
+    float* s_w = reinterpret_cast<float*>(s_end + chunk);        // chunk * C
+    float* s_x = s_w + chunk * C;                                // chunk * m
 
-    const int64_t task0 = static_cast<int64_t>(g) * n;
-    const int32_t* g_start = start + task0;
-    const int32_t* g_end = end + task0;
-    const float* g_w = w + task0 * K;
+    const int tid = threadIdx.x;
+    const int grp = tid / unit_pad;
+    const int unit0 = tid % unit_pad;
+    const int units = C * P;
 
-    for (int k0 = 0; k0 < K; k0 += kKC) {
-        const int kc = min(kKC, K - k0);
-        float acc[kKC];
-#pragma unroll
-        for (int j = 0; j < kKC; ++j) acc[j] = 0.0f;
-
-        for (int u0 = 0; u0 < n; u0 += kChunk) {
-            const int cn = min(kChunk, n - u0);
-            __syncthreads();  // the previous round's readers are done
-            for (int i = threadIdx.x; i < cn; i += blockDim.x) {
-                s_start[i] = g_start[u0 + i];
-                s_end[i] = g_end[u0 + i];
+    const int64_t base = static_cast<int64_t>(b) * n;
+    const int u_lo = min(n, rank * slice);
+    const int u_hi = min(n, u_lo + slice);
+    if (u_lo >= u_hi) {  // no task in this slice: every partial is 0
+        for (int i = tid; i < W * tc; i += blockDim.x) part[i] = 0.0f;
+    }
+    for (int c0 = u_lo; c0 < u_hi; c0 += chunk) {
+        const int cn = min(chunk, u_hi - c0);
+        __syncthreads();  // the last chunk's readers are done
+        // the chunk's spans, w slab and x slab: contiguous, read once
+        for (int i = tid; i < cn; i += blockDim.x) {
+            copy_async(s_mask + i, start + base + c0 + i);
+            copy_async(s_end + i, end + base + c0 + i);
+        }
+        const float* wc = w + (base + c0) * C;
+        for (int i = tid; i < cn * C; i += blockDim.x)
+            copy_async(s_w + i, wc + i);
+        if (kX) {
+            const float* xc = x + (base + c0) * m;
+            for (int i = tid; i < cn * m; i += blockDim.x)
+                copy_async(s_x + i, xc + i);
+        }
+        copy_async_wait();
+        // each task's active slots in this tile, in place of its start
+        for (int i = tid; i < cn; i += blockDim.x) {
+            const int lo = max(static_cast<int>(s_mask[i]) - t0, 0);
+            const int hi = min(s_end[i] - t0, t_eff - 1);
+            uint32_t mk = 0u;
+            if (lo <= hi) {
+                const uint32_t upto =
+                    hi == 31 ? 0xffffffffu : (1u << (hi + 1)) - 1u;
+                mk = upto & ~((1u << lo) - 1u);
             }
-            for (int i = threadIdx.x; i < cn * kc; i += blockDim.x) {
-                const int u = i / kc;
-                const int j = i % kc;
-                s_w[u * kKC + j] = g_w[static_cast<int64_t>(u0 + u) * K + k0 + j];
-            }
-            __syncthreads();
-            for (int u = warp; u < cn; u += kWarps) {
-                const float a = (s_start[u] <= t && t <= s_end[u]) ? 1.0f : 0.0f;
+            s_mask[i] = mk;
+        }
+        __syncthreads();
+
+        // this task group's share of the chunk
+        const int g_lo = cn * grp / W;
+        const int g_hi = cn * (grp + 1) / W;
+        float* pg = part + grp * tc;
+        for (int q = unit0; q < units; q += unit_pad) {
+            const int c = q % C;
+            const int ph = q / C;
+            const int j = c / D;
+            uint32_t bit[R];
+            float acc[R];
 #pragma unroll
-                for (int j = 0; j < kKC; ++j) {
-                    if (j < kc) acc[j] = fmaf(a, s_w[u * kKC + j], acc[j]);
+            for (int r = 0; r < R; ++r) {
+                const int tl = ph + r * P;
+                bit[r] = tl < t_eff ? 1u << tl : 0u;
+                acc[r] = 0.0f;
+            }
+            // tasks in batches of kBatch: every shared-memory read of a
+            // batch is issued before its first add (no branch per task)
+            const float* wp = s_w + g_lo * C + c;
+            const float* xp = s_x + g_lo * m + j;
+            int u = g_lo;
+            for (; u + kBatch <= g_hi; u += kBatch) {
+                uint32_t mk[kBatch];
+                float v[kBatch];
+#pragma unroll
+                for (int k = 0; k < kBatch; ++k) {
+                    mk[k] = s_mask[u + k];
+                    // x * w rounds once, as in the plain version
+                    v[k] = kX ? __fmul_rn(wp[k * C], xp[k * m]) : wp[k * C];
+                }
+#pragma unroll
+                for (int k = 0; k < kBatch; ++k) {
+#pragma unroll
+                    for (int r = 0; r < R; ++r) {
+                        if (mk[k] & bit[r]) acc[r] += v[k];
+                    }
+                }
+                wp += kBatch * C;
+                xp += kBatch * m;
+            }
+            for (; u < g_hi; ++u, wp += C, xp += m) {
+                const uint32_t mk = s_mask[u];
+                const float v = kX ? __fmul_rn(wp[0], xp[0]) : wp[0];
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    if (mk & bit[r]) acc[r] += v;
                 }
             }
-        }
-
+            const bool first = c0 == u_lo;
 #pragma unroll
-        for (int j = 0; j < kKC; ++j) s_red[warp][j][lane] = acc[j];
-        __syncthreads();
-        // one thread per (column, slot) adds the warps' partial sums
-        for (int i = threadIdx.x; i < kc * kSlots; i += blockDim.x) {
-            const int j = i / kSlots;
-            const int l = i % kSlots;
-            const int tt = t0 + l;
-            if (tt < T) {
-                float s = 0.0f;
-#pragma unroll
-                for (int q = 0; q < kWarps; ++q) s += s_red[q][j][l];
-                out[(static_cast<int64_t>(g) * T + tt) * K + k0 + j] = s;
+            for (int r = 0; r < R; ++r) {
+                if (!bit[r]) continue;
+                float* dst = pg + (ph + r * P) * C + c;
+                *dst = first ? acc[r] : *dst + acc[r];
             }
         }
-        __syncthreads();  // s_red is reused by the next column pass
     }
+
+    // each output's partial sums, task groups added in group order, go to
+    // the rank that finishes it, into the slot of this rank; one cluster
+    // barrier, then each rank adds the slots in rank order.  No peer reads
+    // this CTA's shared memory after the barrier, so it may then exit.
+    __syncthreads();
+    cluster_wait();  // every CTA of the cluster has started
+    for (int i = tid; i < n_out; i += blockDim.x) {
+        float s = part[i];
+        for (int g = 1; g < W; ++g) s += part[g * tc + i];
+        const int owner = i / share;
+        *cluster.map_shared_rank(recv + rank * share + (i - owner * share),
+                                 owner) = s;
+    }
+    cluster_arrive();
+    cluster_wait();
+    float* o = out + (static_cast<int64_t>(b) * T + t0) * C + rank * share;
+    const int mine = min(share, n_out - rank * share);
+    for (int i = tid; i < mine; i += blockDim.x) {
+        float sum = recv[i];
+        for (int q = 1; q < S; ++q) sum += recv[q * share + i];
+        o[i] = sum;
+    }
+}
+
+struct Plan {
+    int t_tile, t_tiles, R, P, S, W, unit_pad, slice, chunk;
+    int64_t rows;
+    size_t smem;
+};
+
+int sm_count() {
+    static int cached[64] = {0};
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+    if (cached[dev] == 0) {
+        int sms = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cached[dev] = sms > 0 ? sms : 132;
+    }
+    return cached[dev];
+}
+
+// The launch shape for B instances of n tasks, m * D columns, T slots;
+// x_cols = m when the launch reads x, else 0.
+Plan make_plan(int64_t B, int n, int C, int x_cols, int T) {
+    Plan p{};
+    p.t_tile = min(min(kTileT, T), kPartFloats / C);
+    p.t_tiles = (T + p.t_tile - 1) / p.t_tile;
+    p.rows = B * p.t_tiles;
+    // slots per thread: the largest R whose threads keep >= 70% of their
+    // (slot, column) work live; else the busiest
+    double best = -1.0;
+    for (int R = 8; R >= 1; R /= 2) {
+        const int P = (p.t_tile + R - 1) / R;
+        const int units = C * P;
+        const int pad = min((units + 31) / 32 * 32, kMaxThreads);
+        const int passes = (units + pad - 1) / pad;
+        const double eff = static_cast<double>(C) * p.t_tile
+                           / (static_cast<double>(passes) * pad * R);
+        if (eff > best) {
+            best = eff;
+            p.R = R;
+        }
+        if (eff >= 0.7) {
+            p.R = R;
+            break;
+        }
+    }
+    p.P = (p.t_tile + p.R - 1) / p.R;
+    p.unit_pad = min((C * p.P + 31) / 32 * 32, kMaxThreads);
+    // split the tasks until about kWarpsPerSM warps per SM are in flight:
+    // first over the cluster, then over task groups inside each CTA
+    const int64_t target = static_cast<int64_t>(sm_count()) * kWarpsPerSM;
+    const int64_t warps = p.rows * (p.unit_pad / 32);
+    const int tc = p.t_tile * C;
+    p.W = 1;
+    while (2 * p.W * p.unit_pad <= kMaxThreads && 2 * p.W * tc <= kPartFloats
+           && warps * p.W < target && n >= 2 * p.W * kMinTasks)
+        p.W *= 2;
+    p.S = 1;
+    while (p.S < kMaxCluster && warps * p.W * p.S < target
+           && n >= 2 * p.S * p.W * kMinTasks)
+        p.S *= 2;
+    p.slice = (n + p.S - 1) / p.S;
+    const int per_task = 2 + C + x_cols;  // start, end, w row, x row
+    p.chunk = max(1, min(p.slice, kStageFloats / per_task));
+    const int share = (tc + p.S - 1) / p.S;
+    p.smem = (static_cast<size_t>(p.W) * tc + static_cast<size_t>(p.S) * share
+              + static_cast<size_t>(p.chunk) * per_task) * sizeof(float);
+    return p;
+}
+
+template <int R, bool kX>
+cudaError_t launch_r(const Plan& p, const int32_t* start, const int32_t* end,
+                     const float* x, const float* w, float* out, int n, int m,
+                     int D, int T, cudaStream_t stream) {
+    auto kernel = congestion_many_kernel<R, kX>;
+    if (p.smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(p.smem));
+        if (err != cudaSuccess) return err;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(p.rows * p.S), 1, 1);
+    cfg.blockDim = dim3(static_cast<unsigned>(p.W * p.unit_pad), 1, 1);
+    cfg.dynamicSmemBytes = p.smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(p.S);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, kernel, start, end, x, w, out, n, m, D, T,
+                              p.t_tile, p.t_tiles, p.P, p.W, p.unit_pad,
+                              p.slice, p.chunk);
+}
+
+template <bool kX>
+cudaError_t launch_x(const Plan& p, const int32_t* s, const int32_t* e,
+                     const float* x, const float* w, float* out, int n, int m,
+                     int D, int T, cudaStream_t st) {
+    switch (p.R) {
+        case 8: return launch_r<8, kX>(p, s, e, x, w, out, n, m, D, T, st);
+        case 4: return launch_r<4, kX>(p, s, e, x, w, out, n, m, D, T, st);
+        case 2: return launch_r<2, kX>(p, s, e, x, w, out, n, m, D, T, st);
+        default: return launch_r<1, kX>(p, s, e, x, w, out, n, m, D, T, st);
+    }
+}
+
+bool valid(int B, int n, int m, int D, int T) {
+    return B > 0 && T > 0 && m > 0 && D > 0 && n >= 0
+           && static_cast<int64_t>(m) * D <= kPartFloats;
+}
+
+int launch(const void* start, const void* end, const void* x, const void* w,
+           void* out, int B, int n, int m, int D, int T, void* stream) {
+    if (!valid(B, n, m, D, T)) return static_cast<int>(cudaErrorInvalidValue);
+    const Plan p = make_plan(B, n, m * D, x != nullptr ? m : 0, T);
+    if (p.rows * p.S > 0x7fffffff)
+        return static_cast<int>(cudaErrorInvalidConfiguration);
+    const auto* s = static_cast<const int32_t*>(start);
+    const auto* e = static_cast<const int32_t*>(end);
+    const auto* xf = static_cast<const float*>(x);
+    const auto* wf = static_cast<const float*>(w);
+    auto* of = static_cast<float*>(out);
+    auto st = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        x != nullptr ? launch_x<true>(p, s, e, xf, wf, of, n, m, D, T, st)
+                     : launch_x<false>(p, s, e, xf, wf, of, n, m, D, T, st);
+    // a refused launch never runs: report it (and clear it) here
+    const cudaError_t last = cudaGetLastError();
+    return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
 
+// The TPU contract: (G, T, K) congestion of G groups, w (G, n, K).
 extern "C" int congestion_many_launch(const void* start, const void* end,
-                                      const void* w, void* out,
-                                      int G, int n, int T, int K,
-                                      void* stream) {
-    if (G <= 0 || T <= 0 || K <= 0) return 0;
-    const int t_tiles = (T + kSlots - 1) / kSlots;
-    const int64_t blocks = static_cast<int64_t>(G) * t_tiles;
-    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-    congestion_many_kernel<<<static_cast<unsigned>(blocks), kSlots * kWarps, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(start), static_cast<const int32_t*>(end),
-        static_cast<const float*>(w), static_cast<float*>(out), n, T, K,
-        t_tiles);
-    return static_cast<int>(cudaGetLastError());
+                                      const void* w, void* out, int G, int n,
+                                      int T, int K, void* stream) {
+    return launch(start, end, nullptr, w, out, G, n, 1, K, T, stream);
+}
+
+// The LP's forward apply: (B, T, m, D) from w (B, n, m, D) and x (B, n, m).
+extern "C" int congestion_lp_launch(const void* start, const void* end,
+                                    const void* x, const void* w, void* out,
+                                    int B, int n, int m, int D, int T,
+                                    void* stream) {
+    return launch(start, end, x, w, out, B, n, m, D, T, stream);
+}
+
+// The launch shape an entry picks (with_x: the LP's), for reports: t_tile,
+// R, P, S (cluster), W (task groups), threads, chunk, shared bytes.
+extern "C" int congestion_plan(int B, int n, int m, int D, int T, int with_x,
+                               int* info) {
+    if (!valid(B, n, m, D, T)) return static_cast<int>(cudaErrorInvalidValue);
+    const Plan p = make_plan(B, n, m * D, with_x ? m : 0, T);
+    const int vals[8] = {p.t_tile, p.R, p.P, p.S, p.W, p.W * p.unit_pad,
+                         p.chunk, static_cast<int>(p.smem)};
+    for (int i = 0; i < 8; ++i) info[i] = vals[i];
+    return 0;
 }

@@ -11,8 +11,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["congestion_ref", "congestion_many_ref", "fit_scores_ref",
-           "fit_scores_many_ref", "span_mask", "sub_phase_ref"]
+__all__ = ["congestion_ref", "congestion_many_ref", "congestion_lp_ref",
+           "fit_scores_ref", "fit_scores_many_ref", "span_mask",
+           "sub_phase_ref"]
 
 _EPS = 1e-7  # the placement engines' feasibility slack
 
@@ -34,6 +35,23 @@ def congestion_many_ref(start, end, w, T: int):
     mask = ((start[:, None, :] <= t[None, :, None])
             & (t[None, :, None] <= end[:, None, :]))  # (G, T, n)
     return torch.bmm(mask.to(w.dtype), w)
+
+
+def congestion_lp_ref(start, end, w_all, x, T: int):
+    """out[b, t, j, k] = sum_u [start_bu <= t <= end_bu] * x[b,u,j] *
+    w_all[b,u,j,k]: the LP's forward apply, as B*m groups of D columns.
+
+    start, end: (B, n) integer; w_all: (B, n, m, D); x: (B, n, m); out:
+    (B, T, m, D), a permuted view (the reference's operator="pallas"
+    expression, step for step).
+    """
+    B, n, m, D = w_all.shape
+    start_g = start.repeat_interleave(m, dim=0)
+    end_g = end.repeat_interleave(m, dim=0)
+    w_g = w_all.permute(0, 2, 1, 3).reshape(B * m, n, D)
+    x_g = x.permute(0, 2, 1).reshape(B * m, n)
+    cong = congestion_many_ref(start_g, end_g, w_g * x_g[:, :, None], T)
+    return cong.reshape(B, m, T, D).permute(0, 2, 1, 3)
 
 
 def span_mask(s, e, T: int, dtype=torch.float32):

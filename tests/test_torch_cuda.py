@@ -7,7 +7,8 @@ Run on a machine with an NVIDIA card (sm_90a) and the CUDA toolkit:
 Every test here is marked ``cuda`` and skips, with its reason, where no card
 is visible; whether a card is present is decided inside a fixture, so every
 pytest worker collects the same tests.  This file imports no JAX.
-Tolerances: congestion rtol/atol 1e-5; fit margin bit-equal, dot/norm
+Tolerances: congestion rtol/atol 1e-5 (float32 sums in another order; two
+launches on the same inputs bit-equal); fit margin bit-equal, dot/norm
 rtol/atol 1e-5; the placement stepper bit-equal (node choices, counts and
 the pool after the sub-phase).
 """
@@ -54,6 +55,97 @@ def test_congestion_matches_plain(dev, G, n, T, K):
     assert cong.congestion_many.launches == before + 1
     torch.testing.assert_close(got, ref.congestion_many_ref(s, e, w, T),
                                rtol=TOL, atol=TOL)
+
+
+def _padded_spans(g, shape, T):
+    """Spans with a point task, the TPU contract's padding [1, 0] and the
+    pack's padding [0, 0] (given zero weight by the caller)."""
+    s, e = _spans(g, shape, T)
+    if shape[-1] > 2:
+        e[..., 0] = s[..., 0]
+        s[..., 1], e[..., 1] = 1, 0
+        s[..., 2], e[..., 2] = 0, 0
+    return s, e
+
+
+# G=1; n below one slice and far above slices x CTA; T' of 1, 24, 33, 200
+# (one tile, several, a ragged last one); K of 1, 5, 50
+@pytest.mark.parametrize("G,n,T,K", [
+    (1, 5, 24, 5), (1, 1000, 24, 5), (2, 5000, 33, 1), (3, 300, 200, 50),
+    (4, 77, 1, 50), (1, 3, 200, 1), (7, 4096, 24, 50),
+])
+def test_congestion_edges_match_plain(dev, G, n, T, K):
+    g = torch.Generator().manual_seed(G * 13 + n + T)
+    s, e = _padded_spans(g, (G, n), T)
+    w = torch.rand((G, n, K), generator=g)
+    if n > 2:
+        w[:, 2] = 0.0
+    s, e, w = s.to(dev), e.to(dev), w.to(dev)
+    got = cong.congestion_many(s, e, w, T)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.congestion_many_ref(s, e, w, T),
+                               rtol=TOL, atol=TOL)
+
+
+def _lp_inputs(g, B, n, m, D, T, dev):
+    s, e = _padded_spans(g, (B, n), T)
+    w = torch.rand((B, n, m, D), generator=g)
+    x = torch.rand((B, n, m), generator=g)
+    if n > 2:
+        w[:, 2] = 0.0
+    return [t.to(dev) for t in (s, e, w, x)]
+
+
+# the main path's shape (16 Table-I instances: n=1000, m=10, D=5, T'=24)
+# and the edges: m*D of 1, 5, 50 and wider, T' of 1, 24, 33, 200
+@pytest.mark.parametrize("B,n,m,D,T", [
+    (16, 1000, 10, 5, 24), (1, 1000, 10, 5, 24), (1, 5, 1, 1, 1),
+    (2, 5000, 1, 5, 33), (3, 300, 10, 5, 200), (2, 77, 50, 1, 24),
+    (2, 9, 5, 10, 33), (1, 40, 40, 100, 3),
+])
+def test_congestion_lp_matches_plain(dev, B, n, m, D, T):
+    g = torch.Generator().manual_seed(B * 31 + n + m + T)
+    s, e, w, x = _lp_inputs(g, B, n, m, D, T, dev)
+    before = cong.congestion_many.launches
+    got = cong.congestion_lp(s, e, w, x, T)
+    torch.cuda.synchronize()
+    assert cong.congestion_many.launches == before + 1
+    assert got.shape == (B, T, m, D) and got.is_contiguous()
+    torch.testing.assert_close(got, ref.congestion_lp_ref(s, e, w, x, T),
+                               rtol=TOL, atol=TOL)
+
+
+def test_congestion_launches_are_deterministic(dev):
+    g = torch.Generator().manual_seed(5)
+    s, e, w, x = _lp_inputs(g, 16, 1000, 10, 5, 24, dev)
+    a = cong.congestion_lp(s, e, w, x, 24)
+    b = cong.congestion_lp(s, e, w, x, 24)
+    wg = w.reshape(16, 1000, 50).contiguous()
+    c = cong.congestion_many(s, e, wg, 24)
+    d = cong.congestion_many(s, e, wg, 24)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+def test_congestion_lp_rejects_what_the_kernel_does_not_take(dev):
+    s = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    w = torch.rand((2, 8, 3, 2), device=dev)
+    x = torch.rand((2, 8, 3), device=dev)
+    with pytest.raises(TypeError):
+        cong.congestion_lp(s, s, w, x.double(), 4)
+    with pytest.raises(TypeError):
+        cong.congestion_lp(s.long(), s, w, x, 4)
+    with pytest.raises(ValueError):
+        cong.congestion_lp(s, s, w, x[:, :4], 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        cong.congestion_lp(s, s, w, x.transpose(1, 2).contiguous()
+                           .transpose(1, 2), 4)
+    with pytest.raises(ValueError, match="device"):
+        cong.congestion_lp(s, s, w, x.cpu(), 4)
+    # wider than one CTA's partial sums can hold: the launch is refused
+    wide = torch.rand((1, 8, 9000), device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cong.congestion_many(s[:1], s[:1], wide, 4)
 
 
 @pytest.mark.parametrize("B,N,T,D", [(1, 1, 1, 1), (3, 33, 1, 2),
