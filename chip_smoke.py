@@ -33,9 +33,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``pallas`` apply replaced;
 6. the same fleet with no kernels (``operator="dense"``, ``backend="numpy"``):
    lower bounds and costs must agree;
-7. the single-instance path: ``rightsize(instance 0, "lp-map-f",
-   backend="kernel")`` with the fleet's LP result, which launches the B=1 fit
-   kernel through ``TypePool.find_fit``; its cost must equal the fleet's;
+7. the single-instance path: ``rightsize(instance 0, algo,
+   backend="kernel")`` for the four algorithms, with the fleet's LP result,
+   counts set to 0 just before and read just after: one launch of the
+   ``two_phase`` kernel per ``two_phase`` call (12), none of the B=1 fit
+   kernel; then ``backend="numpy"``.  Every cost and ``assign`` must equal
+   the numpy route's, lp-map-f's cost the fleet's, and ``verify`` pass.
+   Every launch is replayed on the kernel and on its plain version
+   (``ref.two_phase_ref``, on the CPU): node counts, stopping tasks,
+   attempts and every task's node bit-equal.  The lp-map-f launches are
+   timed (kernel, plain version on the card, bound, wall per call) beside
+   their latency bound: attempts times one step of ``place_step.cu``'s
+   barrier chain (one block barrier and one shared-memory hand-over,
+   measured here), which the kernels line carries as ``latency_bound_ms``;
+   and
+   ``rightsize(lp-map-f)``'s wall by both routes, in turns.  The B=1 fit
+   kernel (``fit_scores``, the reference's ``fit_scores_pallas``) is still
+   held against its plain version and timed at the shape the per-task route
+   gave it (N=2, T'=23, D=5, span 2);
 8. the compiled placement stepper: the same fleet through
    ``FleetEngine(solver=SolverConfig(operator="dense"),
    placement=PlacementConfig(engine="compiled")).evaluate``, with the launch
@@ -99,6 +114,10 @@ SOURCES = {
                         "src/repro/kernels/fit.py:184"),
     "fit_scores": ("src/repro_torch/kernels/csrc/fit.cu",
                    "src/repro/kernels/fit.py:104"),
+    # the redesign of fit_scores for the single-instance path: the whole
+    # two_phase loop around it (src/repro/core/placement.py) in one launch
+    "two_phase": ("src/repro_torch/kernels/csrc/place_step.cu",
+                  "src/repro/kernels/fit.py:104"),
     # the redesign of fit_scores_many for the compiled path: the scan body
     # of the reference's stepper with its scorer, ops.fit_scores_step
     "place_step": ("src/repro_torch/kernels/csrc/place_step.cu",
@@ -741,6 +760,219 @@ def compiled_phase(torch, np, ref, kernels, fleet, spec, res_np, tm, tn,
         calls=n_disp)}
 
 
+def walk_work(args, work) -> tuple[float, float]:
+    """(bytes, float64 operations) one two_phase launch needs on these
+    inputs, with ``work`` the plain version's tally of the same launch.
+    Bytes: the walk, the phase bounds and capacities, every task's demand,
+    span and norm read once, the result written once.  Operations: the
+    comparisons the attempts need (each node's up to its first violation;
+    first fit stops at the first node that fits), five more per element of
+    each feasible node a similarity attempt scores (a divide, two
+    multiplies, two adds) and each placement's debit."""
+    walk, bounds, cap, dem = args[:4]
+    P, D = cap.shape
+    n = dem.shape[0]
+    nbytes = (walk.numel() * 4 + P * 3 * 4 + P * D * 8 + n * D * 8
+              + n * (4 + 4 + 8) + (3 * P + 2 * n) * 4)
+    ops = work["scored"] + 5 * work["similar"] + work["debited"]
+    return float(nbytes), float(ops)
+
+
+def chain_ns_per_step(torch, dev, steps: int = 1 << 17) -> float:
+    """Device ns per step of ``place_step.cu``'s barrier chain: one block
+    barrier and one shared-memory hand-over by a CTA shaped as the
+    two_phase kernel's, the least an attempt of its serial chain costs."""
+    from repro_torch.kernels import build
+
+    lib = build.load("place_step")
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def fn(n=steps):
+        err = lib.barrier_chain_launch(
+            n, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"barrier chain launch failed: CUDA error "
+                               f"{err}")
+
+    fn()
+    if int(out.item()) != steps:
+        raise AssertionError(f"barrier chain returned {int(out.item())}, "
+                             f"want {steps}")
+    return device_ms(torch, fn, reps=5, warmup=1) * 1e6 / steps
+
+
+def single_phase(torch, np, ref, kernels, fleet, res, report) -> dict:
+    """Phase 7: the single-instance path (see the module docstring).
+    Returns its launches and the two_phase kernel's entry of the kernels
+    line."""
+    from repro_torch.core import ALGORITHMS, rightsize, verify
+    from repro_torch.kernels import place_step as kstep
+
+    p0, lp0 = fleet[0], res.lp_results[0]
+    trimmed = res.plan.buckets[0].batch.problems[0]
+
+    def run(algo, backend):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = rightsize(p0, algo, backend=backend, lp_result=lp0)
+        torch.cuda.synchronize()
+        return sol, time.perf_counter() - t0
+
+    rec = Recorder(torch, kstep, "two_phase_walk", every=True)
+    with rec:
+        kernels.reset_launch_counts()
+        kern = {algo: run(algo, "kernel") for algo in ALGORITHMS}
+        launches = kernels.launch_counts()
+    numpy_ = {algo: run(algo, "numpy") for algo in ALGORITHMS}
+    for algo in ALGORITHMS:
+        (a, wa), (b, wb) = kern[algo], numpy_[algo]
+        verify(trimmed, a)
+        if a.cost(p0) != b.cost(p0) or not (
+                np.array_equal(a.assign, b.assign)
+                and np.array_equal(a.node_type, b.node_type)):
+            raise AssertionError(
+                f"single {algo}: kernel route cost {a.cost(p0)} vs numpy "
+                f"{b.cost(p0)}, or a different assign")
+        log(f"single: rightsize({algo}) cost {a.cost(p0)} on both routes; "
+            f"wall kernel {wa:.6f} s, numpy {wb:.6f} s (first call)")
+    want = res.entries[0]["costs"]["lp-map-f"]
+    if kern["lp-map-f"][0].cost(p0) != want:
+        raise AssertionError(
+            f"single lp-map-f cost {kern['lp-map-f'][0].cost(p0)} != fleet "
+            f"{want}")
+    calls = 4 + 4 + 2 + 2  # two_phase calls of the four algorithms
+    log(f"single: launches {launches}; {len(rec.log)} two_phase calls")
+    if launches["two_phase"] != calls or len(rec.log) != calls:
+        raise AssertionError(
+            f"two_phase launches {launches['two_phase']}, calls "
+            f"{len(rec.log)}; want {calls} of each")
+    if any(v for k, v in launches.items() if k != "two_phase"):
+        raise AssertionError(f"the single-instance path launched {launches}")
+
+    # every launch again, on the kernel and on the plain version (CPU)
+    t0 = time.perf_counter()
+    works, steps = [], []
+    max_err = mismatches = 0
+    for i, (args, kw) in enumerate(rec.log):
+        got = kstep.two_phase_walk(*args, **kw).cpu()
+        work: dict = {}
+        want_out = ref.two_phase_ref(
+            *[a.cpu() if isinstance(a, torch.Tensor) else a for a in args],
+            kw["similarity"], kw["sequential"], kw["rows"], work=work)
+        P, n = args[2].shape[0], args[3].shape[0]
+        diff = int((got != want_out).sum())
+        max_err = max(max_err, int((got.long() - want_out.long()).abs()
+                                   .max()))
+        mismatches += diff
+        if diff:
+            raise AssertionError(
+                f"two_phase launch {i} ({kw}): {diff} of "
+                f"[w|bad|steps|phase|node] differ from the plain version")
+        works.append(work)
+        steps.append(int(kstep.split_walk(want_out, P, n)[2].sum()))
+    check_s = time.perf_counter() - t0
+    log(f"single: {len(rec.log)} launches replayed, kernel bit-equal to the "
+        f"plain version (max |kernel - plain| {max_err}, {mismatches} "
+        f"entries differ); attempts per launch {steps} ({check_s:.1f} s)")
+    chain_ns = chain_ns_per_step(torch, args[0].device)
+    log(f"single: barrier chain {chain_ns:.3f} device ns per step (one block "
+        f"barrier and one shared-memory hand-over, {1 << 17} steps)")
+
+    def timed(idx):
+        args, kw = rec.log[idx]
+        fn = lambda: kstep.two_phase_walk(*args, **kw)  # noqa: E731
+        ms = device_ms(torch, fn, reps=20, warmup=3)
+        plain = cuda_ms(torch, lambda: ref.two_phase_ref(
+            *args, kw["similarity"], kw["sequential"], kw["rows"]),
+            reps=2, warmup=1)
+        call = cuda_ms(torch, fn, reps=20, warmup=3)
+        b_ms, b_by = bound(*walk_work(args, works[idx]), PEAK_F64_FLOPS)
+        info = {"telemetry": {}}
+        kstep.two_phase_walk(*args, **kw, telemetry=info["telemetry"])
+        return {"shape": {"n": args[3].shape[0], "P": args[2].shape[0],
+                          "T": args[7], "D": args[3].shape[1],
+                          "E": args[0].shape[0], **kw,
+                          "smem_rows": info["telemetry"]["smem_rows"]},
+                "steps": steps[idx], "ms": ms, "plain_ms": plain,
+                "call_ms": call, "bound_ms": b_ms, "bound_by": b_by,
+                "latency_bound_ms": steps[idx] * chain_ns * 1e-6,
+                "ns_per_step": ms * 1e6 / max(steps[idx], 1)}
+
+    # lp-map-f's two launches (first, then similarity fit)
+    per_fit = {("similarity" if rec.log[i][1]["similarity"] else "first"):
+               timed(i) for i in (calls - 2, calls - 1)}
+    for fit_name, info in per_fit.items():
+        log(f"timing: two_phase lp-map-f {fit_name} at {info['shape']}: ms "
+            f"per launch: kernel {info['ms']:.6f} (device; "
+            f"{info['call_ms']:.6f} per wrapper call by CUDA events), plain "
+            f"{info['plain_ms']:.6f} (CUDA events), bound "
+            f"{info['bound_ms']:.3e} ({info['bound_by']}), latency bound "
+            f"{info['latency_bound_ms']:.6f} ({info['steps']} attempts x "
+            f"{chain_ns:.3f} ns barrier chain); {info['ns_per_step']:.1f} "
+            f"device ns per attempt")
+
+    # rightsize(lp-map-f) by both routes, in turns
+    walls = {"kernel": [], "numpy": []}
+    for backend in ("kernel", "numpy", "numpy", "kernel",
+                    "kernel", "numpy"):
+        walls[backend].append(run("lp-map-f", backend)[1])
+    log(f"single: rightsize(lp-map-f) wall s, in turns: kernel "
+        f"{walls['kernel']}, numpy {walls['numpy']}")
+    report["single"] = {
+        "costs": {a: kern[a][0].cost(p0) for a in ALGORITHMS},
+        "first_wall_s": {a: {"kernel": kern[a][1], "numpy": numpy_[a][1]}
+                         for a in ALGORITHMS},
+        "lp_map_f_wall_s": walls, "launches": launches, "attempts": steps,
+        "check_s": check_s, "per_fit": per_fit,
+        "chain_ns_per_step": chain_ns, "replay_max_abs_err": max_err,
+        "replay_mismatches": mismatches}
+    main = per_fit["similarity"]
+    # no single PyTorch call places
+    return {"launches": launches, "kinfo": dict(
+        main, max_abs_err=float(max_err), library_ms=None, calls=calls)}
+
+
+def fit1_timing(torch, np, ref, fit, p0, dev, edge_err) -> dict:
+    """The B=1 fit kernel at the shape the per-task route gave it on
+    instance 0 (N=2 open nodes, T'=23, D=5, a span of 2 slots): held
+    against its plain version, then timed beside the plain version fused
+    by ``torch.compile`` (a yardstick only)."""
+    from repro_torch.core import trim_timeline
+
+    t = trim_timeline(p0)[0]
+    g = np.random.default_rng(7)
+    cap = t.node_types.cap[0]
+    rem = cap[None, None, :] - g.random((2, t.T, t.D)) * 0.3 * cap
+    rem1 = torch.as_tensor(rem, dtype=torch.float32, device=dev)
+    dem1 = torch.as_tensor(t.dem[0], dtype=torch.float32, device=dev)
+    inv1 = torch.as_tensor(1.0 / cap, dtype=torch.float32, device=dev)
+    s1, e1 = 5, 6
+    e_1 = check_fit1(torch, ref, fit, rem1, dem1, s1, e1, inv1,
+                     "single-path shape")
+    N1, T1, D1 = rem1.shape
+    sp1 = e1 - s1 + 1
+    b_ms, b_by = bound(N1 * sp1 * D1 * 4 + (2 * D1) * 4 + 3 * N1 * 4,
+                       8.0 * N1 * sp1 * D1)
+    mask1 = ref.span_mask(torch.tensor([s1]), torch.tensor([e1]),
+                          T1)[0].to(dev)
+    fused1 = torch.compile(ref.fit_scores_ref, fullgraph=True, dynamic=False)
+    check_fused(torch, fused1, ref.fit_scores_ref, (rem1, dem1, mask1, inv1),
+                "fit_scores")
+    return {
+        "shape": {"N": N1, "T": T1, "D": D1, "span": sp1}, "calls": 0,
+        "max_abs_err": max(e_1, edge_err),
+        "ms": device_ms(torch, lambda: fit.fit_scores(rem1, dem1, s1, e1,
+                                                        inv1)),
+        "plain_ms": device_ms(
+            torch, lambda: ref.fit_scores_ref(rem1, dem1, mask1, inv1)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(torch,
+                                lambda: fused1(rem1, dem1, mask1, inv1)),
+        "call_ms": cuda_ms(
+            torch, lambda: fit.fit_scores(rem1, dem1, s1, e1, inv1)),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -766,8 +998,7 @@ def main(argv=None) -> int:
         return 2
 
     from repro_torch import kernels
-    from repro_torch.core import (FleetEngine, PlacementConfig,
-                                  SolverConfig, rightsize, verify)
+    from repro_torch.core import FleetEngine, PlacementConfig, SolverConfig
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import congestion as cong
     from repro_torch.kernels import fit
@@ -1078,53 +1309,13 @@ def main(argv=None) -> int:
     report["plain"] = {"wall_s": wall_np, "timings": tn, "flips": flips,
                        "entries": res_np.entries}
 
-    # 7. the single-instance path (B=1 fit kernel through TypePool.find_fit)
-    with Recorder(torch, fit, "fit_scores") as rec_1:
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        sol = rightsize(fleet[0], "lp-map-f", backend="kernel",
-                        lp_result=res.lp_results[0])
-        single_s = time.perf_counter() - t0
-        launches_1 = kernels.launch_counts()
-    verify(res.plan.buckets[0].batch.problems[0], sol)
-    cost1 = sol.cost(fleet[0])
-    want1 = res.entries[0]["costs"]["lp-map-f"]
-    log(f"single: rightsize(lp-map-f, kernel) cost {cost1} vs fleet {want1}, "
-        f"{single_s:.3f} s, launches {launches_1}")
-    if cost1 != want1:
-        raise AssertionError(f"single-instance cost {cost1} != fleet {want1}")
-    if launches_1["fit_scores"] <= 0:
-        raise AssertionError("the single-instance fit kernel never launched")
-    e_1 = max(check_fit1(torch, ref, fit, *a, "single-path input")
-              for a in rec_1.inputs.values())
-    key_1, n_1 = rec_1.calls.most_common(1)[0]
-    rem1, dem1, s1, e1, inv1 = rec_1.inputs[key_1]
-    N1, T1, D1 = rem1.shape
-    sp1 = int(e1 - s1 + 1)
-    b_ms, b_by = bound(N1 * sp1 * D1 * 4 + (2 * D1) * 4 + 3 * N1 * 4,
-                       8.0 * N1 * sp1 * D1)
-    mask1 = ref.span_mask(torch.tensor([s1]), torch.tensor([e1]),
-                          T1)[0].to(dev)
-    fused1 = torch.compile(ref.fit_scores_ref, fullgraph=True, dynamic=False)
-    check_fused(torch, fused1, ref.fit_scores_ref, (rem1, dem1, mask1, inv1),
-                "fit_scores")
-    kinfo["fit_scores"] = {
-        "shape": {"N": N1, "T": T1, "D": D1, "span": sp1},
-        "calls": sum(rec_1.calls.values()),
-        "max_abs_err": max(e_1, err["fit_scores"]),
-        "ms": device_ms(torch, lambda: fit.fit_scores(rem1, dem1, s1, e1,
-                                                        inv1)),
-        "plain_ms": device_ms(
-            torch, lambda: ref.fit_scores_ref(rem1, dem1, mask1, inv1)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": device_ms(torch,
-                                lambda: fused1(rem1, dem1, mask1, inv1)),
-        "call_ms": cuda_ms(
-            torch, lambda: fit.fit_scores(rem1, dem1, s1, e1, inv1)),
-    }
+    # 7. the single-instance path: one two_phase launch per two_phase call
+    single = single_phase(torch, np, ref, kernels, fleet, res, report)
+    kinfo["two_phase"] = single["kinfo"]
+    kinfo["fit_scores"] = fit1_timing(torch, np, ref, fit, fleet[0], dev,
+                                      err["fit_scores"])
     log(timing_line("fit_scores", kinfo["fit_scores"]))
-    report["single"] = {"cost": cost1, "wall_s": single_s,
-                        "launches": launches_1}
+    launches_1 = single["launches"]
 
     # 8. the compiled placement stepper
     stepper = compiled_phase(torch, np, ref, kernels, fleet, spec, res_np,
@@ -1137,7 +1328,8 @@ def main(argv=None) -> int:
             "congestion_lp": calls_c,
             "fit_scores_many": launches["fit_scores_many"],
             "fit_scores": launches_1["fit_scores"],
-            "place_step": stepper["launches"]["place_step"]}
+            "place_step": stepper["launches"]["place_step"],
+            "two_phase": launches_1["two_phase"]}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": runs[name],
@@ -1145,7 +1337,10 @@ def main(argv=None) -> int:
          "plain_ms": kinfo[name]["plain_ms"],
          "bound_ms": kinfo[name]["bound_ms"],
          "bound_by": kinfo[name]["bound_by"],
-         "library_ms": kinfo[name]["library_ms"]}
+         "library_ms": kinfo[name]["library_ms"],
+         # the serial chain's floor, where a kernel is one (two_phase)
+         **({"latency_bound_ms": kinfo[name]["latency_bound_ms"]}
+            if "latency_bound_ms" in kinfo[name] else {})}
         for name in SOURCES]}
     report["kernels"] = kinfo
     if args.out is not None:

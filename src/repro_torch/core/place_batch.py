@@ -75,15 +75,14 @@ def _phases(problem, mapping: np.ndarray, fit: str,
     dn_all = np.ones(problem.n)
     if fit == "similarity":
         # find_fit's demand norm, cached per task (static given the
-        # mapping).  The row-wise einsum may differ from find_fit's BLAS
-        # np.linalg.norm in the last ulp; the norm is a per-task factor
-        # common to every candidate node's score, so exactly-tied nodes
-        # (identical remaining capacity) stay exactly tied and the
-        # argmax tie-breaking is unaffected.
+        # mapping), bit for bit: np.linalg.norm of a vector is
+        # sqrt(x.dot(x)), and each row's dot here is the same BLAS call on
+        # the same D values (a row-wise einsum may differ in the last ulp)
         dem_n_all = problem.dem / nt.cap[mapping]
         spans = problem.end - problem.start + 1
-        dn_all = np.sqrt(
-            np.einsum("nd,nd->n", dem_n_all, dem_n_all)) * np.sqrt(spans)
+        sq = np.fromiter((r.dot(r) for r in dem_n_all), np.float64,
+                         problem.n)
+        dn_all = np.sqrt(sq) * np.sqrt(spans)
 
     own, fill = [], []
     for pos, B in enumerate(type_order):

@@ -11,12 +11,19 @@ fitting policies (paper §III):
                      (the dot-product/best-fit strategy of [25], [12]).
 
 The per-task scoring pass is the algorithm's hot loop
-(O(n * |S| * D * T) total); ``backend='kernel'`` routes it through the
-hand-written CUDA fit kernel (``repro_torch.kernels.fit``, its B=1
-launch) on ``device``, ``backend='numpy'`` uses the plain vectorized host
-path.  The pool bookkeeping stays float64 numpy on the host either way,
-as in the reference (``repro.core.placement``), so the numpy backend
-places bit-identically to the reference.
+(O(n * |S| * D * T) total).  ``backend='numpy'`` runs ``two_phase`` as the
+reference (``repro.core.placement``) does: a host loop over tasks, the
+pools float64 numpy in ``TypePool``, scoring vectorized on the host.
+``backend='kernel'`` runs the whole placement on ``device`` in one launch
+of the hand-written CUDA ``two_phase`` kernel (``kernels/csrc/
+place_step.cu``, wrapper ``kernels.place_step.two_phase_walk``): the host
+builds the static task orders once, copies them to the card, and reads
+back the node counts and every task's node; the pools never leave the
+card.  On the CPU the same call runs the kernel's plain version
+(``kernels.ref.two_phase_ref``).  Both backends place bit-identically to
+the reference.  ``TypePool``'s own ``kernel`` backend, for callers who use
+it directly, scores one task per launch of the B=1 fit kernel
+(``kernels.fit.fit_scores``).
 """
 
 from __future__ import annotations
@@ -103,6 +110,55 @@ class TypePool:
         self._rem[local_idx, s : e + 1, :] -= dem
 
 
+def _two_phase_kernel(problem: Problem, mapping: np.ndarray, fit: str,
+                      filling: bool, device):
+    """``two_phase``'s placement in one launch of the ``two_phase`` kernel
+    (its plain version on the CPU).  Returns (node_type, assign).
+
+    The host builds, once, what the reference's loop derives as it goes:
+    the type order, each type's own tasks in start order and, with filling,
+    each type's cross-fill candidates (the tasks mapped to later types) in
+    stable h_avg order; the kernel skips tasks placed by then, which is the
+    reference's ``~placed`` filter.  A type buys nodes only in its own
+    phase, so its nodes are one block of global ids in type order."""
+    from ..kernels import place_step as kstep
+    from .place_batch import _phases
+    from .place_step import _QUANTUM, _upload
+
+    nt = problem.node_types
+    n, m, T = problem.n, nt.m, problem.T
+    if mapping.shape != (n,) or (n and (mapping.min() < 0
+                                        or mapping.max() >= m)):
+        raise ValueError(f"mapping must be ({n},) node-types in [0, {m})")
+    mapping = mapping.astype(np.int64)
+    ph = _phases(problem, mapping, fit, filling)
+    parts = [part for k in range(m) for part in (ph.own[k], ph.fill[k])]
+    ends = np.cumsum([0] + [len(x) for x in parts])
+    bounds = np.stack([ends[0:-1:2], ends[1::2], ends[2::2]], axis=1)
+    walk = np.concatenate(parts).astype(np.int32)
+    host = [walk, bounds.astype(np.int32),
+            np.ascontiguousarray(nt.cap[ph.type_order], np.float64),
+            np.ascontiguousarray(problem.dem, np.float64),
+            problem.start.astype(np.int32), problem.end.astype(np.int32),
+            ph.dem_norm]
+    rows = max(len(x) for x in ph.own)
+    out = kstep.two_phase_walk(*_upload(host, device), T, _QUANTUM,
+                               similarity=fit == "similarity",
+                               sequential=filling, rows=rows)
+    w, bad, _, phase, node = kstep.split_walk(out.cpu().numpy(), m, n)
+    hit = np.flatnonzero(bad >= 0)
+    if len(hit):
+        k = int(hit[0])  # the sequential loop meets the earliest phase first
+        raise RuntimeError(
+            f"mapping assigned task {int(bad[k])} to node-type "
+            f"{int(ph.type_order[k])} it cannot fit")
+    assert (phase >= 0).all(), "two_phase must place every task"
+    offsets = np.cumsum(w) - w  # each phase's first global node id
+    assign = offsets[phase] + node
+    node_type = np.repeat(ph.type_order, w)
+    return node_type.astype(np.int64), assign.astype(np.int64)
+
+
 def _sort_by_start(problem: Problem, tasks: np.ndarray) -> np.ndarray:
     order = np.lexsort((tasks, problem.start[tasks]))
     return tasks[order]
@@ -127,13 +183,19 @@ def two_phase(
     tasks, the remaining tasks of *later* types piggy-back into this type's
     leftover holes in increasing h_avg(u|B) order (fill only — no purchase).
 
-    ``backend='kernel'`` scores on ``device`` (None = the CUDA card).
+    ``backend='kernel'`` places in one launch of the ``two_phase`` kernel
+    on ``device`` (None = the CUDA card; on the CPU its plain version).
     Instances with active constraints are rejected (``require_lowered``).
     """
     dev = resolve_device(device)
     require_lowered(problem, "two_phase")
     if fit not in FIT_POLICIES:
         raise ValueError(f"fit must be one of {FIT_POLICIES}")
+    if backend == "kernel":
+        node_type, assign = _two_phase_kernel(
+            problem, np.asarray(mapping), fit, filling, dev)
+        return Solution(node_type=node_type, assign=assign,
+                        meta=dict(meta or {}, fit=fit, filling=filling))
     nt = problem.node_types
     n = problem.n
 
@@ -144,10 +206,7 @@ def two_phase(
 
     assign = np.full(n, -1, dtype=np.int64)
     node_types_purchased: list[int] = []
-    pools = {
-        B: TypePool(nt.cap[B], problem.T, backend=backend, device=dev)
-        for B in range(nt.m)
-    }
+    pools = {B: TypePool(nt.cap[B], problem.T) for B in range(nt.m)}
     h_avg = penalty_mod.relative_demand(problem, "avg") if filling else None
     placed = np.zeros(n, dtype=bool)
 

@@ -5,8 +5,10 @@ host-facing wrappers.
                    (``csrc/congestion.cu``).
 * ``fit``        — placement feasibility and similarity scoring over all
                    open nodes (``csrc/fit.cu``), batched and single-instance.
-* ``place_step`` — the compiled placement stepper: every step of one
-                   placement sub-phase in one launch (``csrc/place_step.cu``).
+* ``place_step`` — the placement steppers (``csrc/place_step.cu``): every
+                   step of one placement sub-phase in one launch (the
+                   compiled fleet path), and one instance's whole
+                   ``two_phase`` in one launch (``two_phase_walk``).
 
 ``ref`` holds the plain versions, ``ops`` the host-facing API with the
 reference's signatures, ``build`` the nvcc build.  ``launch_counts`` reads
@@ -16,7 +18,7 @@ each wrapper's launch count and ``reset_launch_counts`` sets them to 0.
 from . import ops, ref
 from .congestion import congestion_many
 from .fit import fit_scores, fit_scores_many
-from .place_step import sub_phase
+from .place_step import sub_phase, two_phase_walk
 
 __all__ = ["ops", "ref", "WRAPPERS", "launch_counts", "reset_launch_counts"]
 
@@ -26,6 +28,7 @@ WRAPPERS = {
     "fit_scores_many": fit_scores_many,
     "fit_scores": fit_scores,
     "place_step": sub_phase,
+    "two_phase": two_phase_walk,
 }
 
 

@@ -31,8 +31,9 @@ SOURCES = ("congestion", "fit", "place_step")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
-# the placement stepper must repeat the numpy engine's float64 operations
-# bit for bit, so nvcc may not contract a * b + c into a fused multiply-add
+# the placement steppers (both entries of place_step.cu) must repeat the
+# numpy engine's float64 operations bit for bit, so nvcc may not contract
+# a * b + c into a fused multiply-add
 EXTRA_FLAGS = {"place_step": ("-fmad=false",)}
 
 _C = ctypes.c_void_p
@@ -57,6 +58,9 @@ SIGNATURES = {
         "place_step_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _C, _F,
                               _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I,
                               _C, _C),
+        "two_phase_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _F, _C,
+                             _I, _I, _I, _I, _I, _I, _I, _C, _C),
+        "barrier_chain_launch": (_I, _C, _C),
     },
 }
 

@@ -1,5 +1,15 @@
-// Compiled placement stepper for Hopper (sm_90a): one launch runs every
-// attempt step of one placement sub-phase, for every lane at once.
+// Placement steppers for Hopper (sm_90a).  Two entries share one step:
+//
+//   place_step_launch  every attempt step of one placement sub-phase, for
+//                      every lane at once (the compiled fleet path);
+//   two_phase_launch   one instance's whole two_phase placement, every
+//                      node-type's own pack and cross-fill, in one launch
+//                      (the single-instance path; see the second part below).
+//
+// A third entry, barrier_chain_launch, places nothing: it measures the
+// latency floor of two_phase's serial chain (one block barrier and one
+// shared-memory hand-over per attempt), the bound the smoke prints beside
+// the bytes and operations bound.
 //
 // Replaces: the lax.scan body of src/repro/core/place_step.py
 // (_make_sub_phase.sub_phase) together with the scorer it calls every step,
@@ -62,10 +72,125 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr double kEps = 1e-7;  // the engines' feasibility slack (EPS)
+constexpr unsigned kAll = 0xffffffffu;
 
-__device__ __forceinline__ double* row_of(double* rows_s, double* rows_g,
-                                          int j, int n_smem, int K) {
-    return (j < n_smem ? rows_s : rows_g) + static_cast<int64_t>(j) * K;
+// f(row) for pool row j, which lives in shared memory when j < n_smem and
+// in device memory past that.  Each branch passes a pointer whose memory
+// space the compiler can see, so a row in shared memory is read with
+// shared-memory loads rather than generic ones.
+template <typename F>
+__device__ __forceinline__ void on_row(double* rows_s, double* rows_g, int j,
+                                       int n_smem, int K, F f) {
+    if (j < n_smem)
+        f(rows_s + static_cast<int64_t>(j) * K);
+    else
+        f(rows_g + static_cast<int64_t>(j) * K);
+}
+
+// The first maximum, over this warp's open nodes j = warp, warp + kWarps,
+// ... < w, of the step's key: 0 for first fit, the quantized cosine for
+// similarity, over the feasible nodes only.  Returns (-inf, INT_MAX) when
+// the warp has no feasible node.  Every elementwise operation is the numpy
+// engine's float64 operation (thr = dem - EPS, rn = rem / cap, dq = dem /
+// cap); the two sums are taken in lane order and then by shuffles.  The
+// span starts at a slot boundary (k0 = s * D), so a lane's first dimension
+// is lane_d = lane % D and each stride of 32 moves it on by r32 = 32 % D.
+// First fit keys every feasible node 0, so a warp stops at its first one.
+__device__ __forceinline__ void warp_first_max(
+        double* rows_s, double* rows_g, int n_smem, int K, int D, int w,
+        int k0, int k1, const double* thr, const double* dq, const double* cx,
+        double dn, double quantum, bool similarity, int warp, int lane,
+        int lane_d, int r32, double* best_key, int* best_j) {
+    double best = -INFINITY;
+    int bj = INT_MAX;
+    for (int j = warp; j < w; j += kWarps) {
+        bool viol = false;
+        double dot = 0.0, norm2 = 0.0;
+        on_row(rows_s, rows_g, j, n_smem, K, [&](const double* row) {
+            int d = lane_d;
+            if (similarity) {
+                for (int k = k0 + lane; k < k1; k += 32) {
+                    const double r = row[k];
+                    viol |= r < thr[d];
+                    const double rn = r / cx[d];
+                    dot += rn * dq[d];
+                    norm2 += rn * rn;
+                    d += r32;
+                    if (d >= D) d -= D;
+                }
+            } else {
+                for (int k = k0 + lane; k < k1; k += 32) {
+                    viol |= row[k] < thr[d];
+                    d += r32;
+                    if (d >= D) d -= D;
+                }
+            }
+        });
+        if (__any_sync(kAll, viol)) continue;
+        if (!similarity) {
+            best = 0.0;
+            bj = j;
+            break;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            dot += __shfl_xor_sync(kAll, dot, off);
+            norm2 += __shfl_xor_sync(kAll, norm2, off);
+        }
+        const double score = dot / (dn * sqrt(norm2) + 1e-30);
+        const double key = rint(score * quantum) / quantum;
+        if (key > best) {
+            best = key;
+            bj = j;
+        }
+    }
+    *best_key = best;
+    *best_j = bj;
+}
+
+// The block's first maximum from the warps' (key, j): ties go to the lowest
+// j.  Returns -1 when no warp found a feasible node.
+__device__ __forceinline__ int block_first_max(const double* warp_key,
+                                               const int* warp_j) {
+    double bk = -INFINITY;
+    int bj = INT_MAX;
+    for (int i = 0; i < kWarps; ++i) {
+        const double k = warp_key[i];
+        if (k > bk || (k == bk && warp_j[i] < bj)) {
+            bk = k;
+            bj = warp_j[i];
+        }
+    }
+    return bj == INT_MAX ? -1 : bj;
+}
+
+// The same first maximum, found by one whole warp with shuffles (lanes
+// 0..kWarps-1 read one warp's result each); every lane returns it.  The
+// rule (greater key, or equal key and lower j) is a total order, so the
+// tree finds what the sequential scan finds.
+__device__ __forceinline__ int warp_pick(const double* warp_key,
+                                         const int* warp_j, int lane) {
+    double bk = lane < kWarps ? warp_key[lane] : -INFINITY;
+    int bj = lane < kWarps ? warp_j[lane] : INT_MAX;
+#pragma unroll
+    for (int off = kWarps / 2; off > 0; off >>= 1) {
+        const double k = __shfl_xor_sync(kAll, bk, off);
+        const int j = __shfl_xor_sync(kAll, bj, off);
+        if (k > bk || (k == bk && j < bj)) {
+            bk = k;
+            bj = j;
+        }
+    }
+    bj = __shfl_sync(kAll, bj, 0);
+    return bj == INT_MAX ? -1 : bj;
+}
+
+// Whether the demand exceeds the node-type's capacity + EPS in some dim.
+__device__ __forceinline__ bool exceeds(const double* dem, const double* cap,
+                                        int D) {
+    for (int d = 0; d < D; ++d)
+        if (dem[d] > cap[d] + kEps) return true;
+    return false;
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -102,6 +227,8 @@ place_step_kernel(double* __restrict__ pool,
     double* rows_g = pool + static_cast<int64_t>(a) * n_cap * K;
     const int w0 = w_in[a];
     const int len = lens[a];
+    const int lane_d = lane % D;
+    const int r32 = 32 % D;
     const int reach = min(n_cap, purchase ? w0 + len : w0);
     const int n_s = min(reach, n_smem);
 
@@ -148,41 +275,12 @@ place_step_kernel(double* __restrict__ pool,
         }
         const int k0 = sh_s * D;
         const int k1 = (sh_e + 1) * D;
-        const double dn = sh_dn;
 
-        // each warp: the first maximum over its nodes (j ascending)
-        double best = -INFINITY;
-        int best_j = INT_MAX;
-        for (int j = warp; j < w; j += kWarps) {
-            const double* row = row_of(rows_s, rows_g, j, n_smem, K);
-            bool viol = false;
-            double dot = 0.0, norm2 = 0.0;
-            for (int k = k0 + lane; k < k1; k += 32) {
-                const int d = k % D;
-                const double r = row[k];
-                viol |= r < thr[d];
-                if (similarity) {
-                    const double rn = r / cx[d];
-                    dot += rn * dq[d];
-                    norm2 += rn * rn;
-                }
-            }
-            if (__any_sync(0xffffffffu, viol)) continue;
-            double key = 0.0;
-            if (similarity) {
-#pragma unroll
-                for (int off = 16; off > 0; off >>= 1) {
-                    dot += __shfl_xor_sync(0xffffffffu, dot, off);
-                    norm2 += __shfl_xor_sync(0xffffffffu, norm2, off);
-                }
-                const double score = dot / (dn * sqrt(norm2) + 1e-30);
-                key = rint(score * quantum) / quantum;
-            }
-            if (key > best) {
-                best = key;
-                best_j = j;
-            }
-        }
+        double best;
+        int best_j;
+        warp_first_max(rows_s, rows_g, n_smem, K, D, w, k0, k1, thr, dq, cx,
+                       sh_dn, quantum, similarity, warp, lane, lane_d, r32,
+                       &best, &best_j);
         if (lane == 0) {
             warp_key[warp] = best;
             warp_j[warp] = best_j;
@@ -190,27 +288,9 @@ place_step_kernel(double* __restrict__ pool,
         __syncthreads();
 
         if (tid == 0) {
-            double bk = -INFINITY;
-            int bj = INT_MAX;
-            for (int i = 0; i < kWarps; ++i) {
-                const double k = warp_key[i];
-                if (k > bk || (k == bk && warp_j[i] < bj)) {
-                    bk = k;
-                    bj = warp_j[i];
-                }
-            }
-            int j = -1;
-            if (bj != INT_MAX) {
-                j = bj;
-            } else if (purchase) {
-                if (bad < 0) {
-                    for (int d = 0; d < D; ++d) {
-                        if (dem[d] > cap_rows[a * D + d] + kEps) {
-                            bad = l;
-                            break;
-                        }
-                    }
-                }
+            int j = block_first_max(warp_key, warp_j);
+            if (j < 0 && purchase) {
+                if (bad < 0 && exceeds(dem, cap_rows + a * D, D)) bad = l;
                 j = w;
                 w += 1;
             }
@@ -223,8 +303,10 @@ place_step_kernel(double* __restrict__ pool,
         const int j = sh_j;
         w = sh_w;
         if (j >= 0) {
-            double* row = row_of(rows_s, rows_g, j, n_smem, K);
-            for (int k = k0 + tid; k < k1; k += kThreads) row[k] -= dem[k % D];
+            on_row(rows_s, rows_g, j, n_smem, K, [&](double* row) {
+                for (int k = k0 + tid; k < k1; k += kThreads)
+                    row[k] -= dem[k % D];
+            });
         }
         __syncthreads();
     }
@@ -235,6 +317,374 @@ place_step_kernel(double* __restrict__ pool,
         w_out[a] = w;
         bad_out[a] = bad;
     }
+}
+
+// ---------------------------------------------------------------------------
+// two_phase: one instance's whole placement in one launch.
+//
+// Replaces, on the single-instance path, the per-task loop of
+// src/repro/core/placement.py : two_phase around TypePool.find_fit, whose
+// scorer is src/repro/kernels/fit.py : fit_scores_pallas (pallas_call at
+// :104).  Its B=1 port (csrc/fit.cu, fit_scores_launch) was launched once per
+// attempted task with a host round trip around each launch; this entry keeps
+// the node-type's pool on the card and walks every attempt itself.
+//
+// The host hands over one walk: for each phase p (a node-type, in two_phase's
+// type order) the entries [lo_p, own_p) are the type's own tasks in start
+// order and [own_p, hi_p) the cross-fill candidates (tasks mapped to later
+// types) in increasing h_avg order; cap[p] is the type's capacity.  Exactly as
+// two_phase does, and with the step above:
+//
+//   an entry whose task is already placed is skipped;
+//   own part:   the policy fit places the task; on a miss a node is bought
+//               (w += 1, its row set to cap), unless the demand exceeds
+//               cap + EPS: then bad[p] = the task and the walk stops (the
+//               host raises the reference's error naming it); a purchase
+//               past ``rows`` nodes stops the walk too, with bad[p] = -2;
+//   cross-fill: first fit, no purchase; a miss leaves the task unplaced; a
+//               phase that attempted no own task has no node open, so every
+//               attempt would miss and the part is skipped.
+//
+// out = [w (P) | bad (P) | steps (P) | phase (n) | node (n)]: the nodes each
+// phase bought, its bad task (-1 = none), its attempts (skipped entries do
+// not count), and per task the phase and the phase-local node it was placed
+// in (-1 = not placed).  A type buys only in its own phase, so the host
+// numbers its nodes as one block in type order.
+//
+// What bounds it on this card: the serial chain of dependent attempts (each
+// reads the pool the previous one wrote): per attempt, the scoring of the
+// open nodes' spans, two barriers and the pick, not bytes or operations.
+//
+// What the design does about it: with filling the phases are one sequential
+// chain, so one CTA walks them all; without it they are independent, so
+// there is one CTA per phase (type-parallel), still one launch.  The current
+// type's open rows live in shared memory (rows past the budget spill to
+// device memory through on_row), and so does the placed bitmap.  Eight warps
+// score and debit; a ninth, the scheduler, prepares the next attempt while
+// they do: it holds a window of 32 walk entries in its lanes, finds the next
+// unplaced one with one ballot, takes its demand and span (loaded a step
+// ahead for the entry that follows, so an attempt after an attempt finds
+// them in registers) and forms dem - EPS and dem / cap.  The scorers wait
+// for each other at a named barrier after scoring; every scorer warp picks
+// the node from the warps' results (first fit: one min-reduction of the
+// warps' first feasible nodes; similarity: a shuffle tree); one block
+// barrier per attempt hands the next task over.  A task the scheduler reads
+// ahead is never the one being placed (a phase's walk holds each task
+// once), and it never reads past its phase's walk while an attempt runs.
+
+// warp 0 is the scheduler and warps 1..8 score, so the scheduler shares an
+// issue slot with the scorers of nodes 3 and 7 (warp % 4), not with the
+// scorer of node 0, which every attempt needs
+constexpr int kWalkThreads = kThreads + 32;
+
+struct Task {
+    int u, s, e, own;
+    double dn;
+};
+
+__device__ __forceinline__ void scorers_sync() {
+    asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
+}
+
+__global__ void __launch_bounds__(kWalkThreads, 1)
+two_phase_kernel(const int32_t* __restrict__ walk,
+                 const int32_t* __restrict__ bounds,
+                 const double* __restrict__ cap,
+                 const double* __restrict__ dem_all,
+                 const int32_t* __restrict__ start,
+                 const int32_t* __restrict__ end,
+                 const double* __restrict__ dn_all,
+                 double* __restrict__ pool,
+                 double quantum,
+                 int32_t* __restrict__ out,
+                 int P, int n, int K, int D, int rows, int n_smem,
+                 int similarity, int sequential) {
+    extern __shared__ double smem[];
+    double* rows_s = smem;                                    // n_smem * K
+    double* cx = smem + static_cast<int64_t>(n_smem) * K;     // D
+    double* buf = cx + D;                  // 2 x (dem, thr, dq), D each
+    uint32_t* placed = reinterpret_cast<uint32_t*>(buf + 6 * D);
+    __shared__ double warp_key[kWarps];
+    __shared__ int warp_j[kWarps];
+    __shared__ Task task[2];
+    __shared__ int sh_stop;
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const bool scheduler = tid < 32;
+    const int st = tid - 32;         // a scorer's thread index
+    const int sw = st >> 5;          // a scorer's warp index
+    const int words = (n + 31) >> 5;
+    double* rows_g = pool + static_cast<int64_t>(blockIdx.x) * rows * K;
+    int32_t* w_out = out;
+    int32_t* bad_out = out + P;
+    int32_t* steps_out = out + 2 * P;
+    int32_t* phase_out = out + 3 * P;
+    int32_t* node_out = phase_out + n;
+    // slot k = k0 + i of a span (k0 = s * D) holds dimension i % D
+    const int lane_d = lane % D, r32 = 32 % D;
+    const int st_d = (st + D) % D, r_all = kThreads % D;
+
+    if (tid == 0) sh_stop = 0;
+    for (int i = tid; i < words; i += kWalkThreads) placed[i] = 0u;
+    // every task this CTA can place starts unplaced: all of them when one
+    // CTA walks every phase, else this phase's own tasks
+    const int p_lo = sequential ? 0 : blockIdx.x;
+    const int p_hi = sequential ? P : blockIdx.x + 1;
+    if (sequential) {
+        for (int u = tid; u < n; u += kWalkThreads) {
+            phase_out[u] = -1;
+            node_out[u] = -1;
+        }
+        // phases a stopped walk never reaches keep these
+        for (int p = tid; p < P; p += kWalkThreads) {
+            w_out[p] = 0;
+            bad_out[p] = -1;
+            steps_out[p] = 0;
+        }
+    } else {
+        for (int i = bounds[3 * p_lo] + tid; i < bounds[3 * p_lo + 1];
+             i += kWalkThreads) {
+            phase_out[walk[i]] = -1;
+            node_out[walk[i]] = -1;
+        }
+    }
+
+    int cur = 0;  // which of the two task slots is current
+    for (int p = p_lo; p < p_hi; ++p) {
+        const int lo = bounds[3 * p];
+        const int own_hi = bounds[3 * p + 1];
+        const int hi = sequential ? bounds[3 * p + 2] : own_hi;
+        __syncthreads();  // the last phase's readers are done with task[cur]
+        if (tid < D) cx[tid] = cap[p * D + tid];
+        __syncthreads();
+
+        // the scheduler's window: lane i holds walk[wbase + i] (-1 past
+        // hi); the entries before wnext are consumed.  spec_* hold the
+        // demand and span of task spec_u, loaded a step ahead.
+        int wbase = lo, wnext = 0, wval = -1;
+        int spec_u = -1, spec_s = 0, spec_e = 0;
+        double spec_dn = 0.0, spec_dm = 0.0;
+        bool any_own = false;  // an own task was scheduled in this phase
+
+        // the scheduler: the next unplaced entry's task into slot ``slot``
+        // (u = -1 at the end of the phase's walk), then the loads of the
+        // entry after it
+        auto advance = [&](int slot) {
+            int u = -1, pos = 0;
+            for (;;) {
+                if (wnext >= 32) {
+                    wbase += 32;
+                    wnext = 0;
+                    if (wbase >= hi) break;
+                    wval = wbase + lane < hi ? walk[wbase + lane] : -1;
+                }
+                const bool open_entry = lane >= wnext && wval >= 0
+                    && !((placed[wval >> 5] >> (wval & 31)) & 1u);
+                const unsigned m = __ballot_sync(kAll, open_entry);
+                if (m == 0u) {
+                    wnext = 32;
+                    continue;
+                }
+                const int f = __ffs(m) - 1;
+                wnext = f + 1;
+                pos = wbase + f;
+                u = __shfl_sync(kAll, wval, f);
+                // cross-fill with no node open: every attempt would miss
+                if (pos >= own_hi && !any_own) u = -1;
+                break;
+            }
+            double* b = buf + slot * 3 * D;
+            if (u >= 0) {
+                const bool hit = u == spec_u;
+                any_own |= pos < own_hi;
+                if (lane < D) {
+                    const double dm = hit ? spec_dm
+                                          : dem_all[static_cast<int64_t>(u) * D
+                                                    + lane];
+                    b[lane] = dm;
+                    b[D + lane] = dm - kEps;
+                    b[2 * D + lane] = dm / cx[lane];
+                }
+                if (lane == 0) {
+                    task[slot].s = hit ? spec_s : start[u];
+                    task[slot].e = hit ? spec_e : end[u];
+                    task[slot].dn = hit ? spec_dn : dn_all[u];
+                    task[slot].own = pos < own_hi;
+                }
+                if (wnext < 32) {
+                    const int c = __shfl_sync(kAll, wval, wnext);
+                    if (c >= 0) {
+                        spec_u = c;
+                        if (lane < D)
+                            spec_dm = dem_all[static_cast<int64_t>(c) * D
+                                              + lane];
+                        spec_s = start[c];
+                        spec_e = end[c];
+                        spec_dn = dn_all[c];
+                    }
+                }
+            }
+            if (lane == 0) task[slot].u = u;
+        };
+
+        if (scheduler) {
+            wval = lo + lane < hi ? walk[lo + lane] : -1;
+            advance(cur);
+        }
+        __syncthreads();
+
+        int w = 0, steps = 0;
+        bool stop = false;
+        for (;;) {
+            const Task t = task[cur];
+            if (t.u < 0) break;
+            if (scheduler) {
+                advance(cur ^ 1);
+            } else {
+                const double* dem = buf + cur * 3 * D;
+                const double* thr = dem + D;
+                const double* dq = dem + 2 * D;
+                const int k0 = t.s * D;
+                const int k1 = (t.e + 1) * D;
+                double best;
+                int best_j;
+                const bool sim = similarity && t.own;
+                warp_first_max(rows_s, rows_g, n_smem, K, D, w, k0, k1, thr,
+                               dq, cx, t.dn, quantum, sim, sw, lane, lane_d,
+                               r32, &best, &best_j);
+                if (lane == 0) {
+                    warp_key[sw] = best;
+                    warp_j[sw] = best_j;
+                }
+                scorers_sync();
+
+                // every scorer warp picks the same node; first fit keys
+                // every feasible node 0, so its pick is the lowest j
+                int j;
+                if (sim) {
+                    j = warp_pick(warp_key, warp_j, lane);
+                } else {
+                    const unsigned lo = __reduce_min_sync(
+                        kAll, lane < kWarps ? static_cast<unsigned>(
+                                                  warp_j[lane])
+                                            : 0xffffffffu);
+                    j = lo == static_cast<unsigned>(INT_MAX)
+                        ? -1 : static_cast<int>(lo);
+                }
+                bool opened = false;
+                ++steps;
+                if (j < 0 && t.own) {
+                    const bool unfit = exceeds(dem, cx, D);
+                    if (unfit || w == rows) {
+                        // a task its type cannot hold, or no row left to
+                        // buy: the walk stops (-2 tells the host ``rows``
+                        // was too small)
+                        if (st == 0) {
+                            bad_out[p] = unfit ? t.u : -2;
+                            sh_stop = 1;
+                        }
+                    } else {
+                        j = w++;
+                        opened = true;
+                    }
+                }
+                if (j >= 0) {
+                    on_row(rows_s, rows_g, j, n_smem, K, [&](double* row) {
+                        int d = st_d;
+                        if (opened) {
+                            for (int k = st; k < K; k += kThreads) {
+                                double v = cx[d];
+                                if (k >= k0 && k < k1) v -= dem[d];
+                                row[k] = v;
+                                d += r_all;
+                                if (d >= D) d -= D;
+                            }
+                        } else {
+                            for (int k = k0 + st; k < k1; k += kThreads) {
+                                row[k] -= dem[d];
+                                d += r_all;
+                                if (d >= D) d -= D;
+                            }
+                        }
+                    });
+                    if (st == 0) {
+                        phase_out[t.u] = p;
+                        node_out[t.u] = j;
+                        placed[t.u >> 5] |= 1u << (t.u & 31);
+                    }
+                }
+            }
+            __syncthreads();
+            if (sh_stop) {
+                stop = true;
+                break;
+            }
+            cur ^= 1;
+        }
+        if (st == 0) {
+            w_out[p] = w;
+            steps_out[p] = steps;
+            if (!stop) bad_out[p] = -1;
+        }
+        if (stop) break;
+    }
+}
+
+// The floor of two_phase's serial chain: ``steps`` hand-overs of one value
+// through shared memory, each behind one block barrier, by one CTA shaped
+// as two_phase's (a scheduler warp and eight scorer warps).  At each step
+// one thread, of another warp each time, writes what it read plus one, and
+// every thread reads it after the barrier, so no step starts before the
+// last one ended.  Every two_phase attempt makes at least this hand-over
+// (the next task, after the last one's debit).  out[0] = steps.
+__global__ void __launch_bounds__(kWalkThreads, 1)
+barrier_chain_kernel(int steps, int32_t* __restrict__ out) {
+    __shared__ int slot[2];
+    int v = 0, who = 0;
+    for (int i = 0; i < steps; ++i) {
+        if (static_cast<int>(threadIdx.x) == who) slot[i & 1] = v + 1;
+        __syncthreads();
+        v = slot[i & 1];
+        who += 33;
+        if (who >= kWalkThreads) who -= kWalkThreads;
+    }
+    if (threadIdx.x == 0) out[0] = v;
+}
+
+// Shared-memory bytes a CTA of ``kernel`` may give to pool rows, when
+// ``ctas`` CTAs must share each SM and ``fixed`` bytes of its dynamic shared
+// memory hold other things.
+cudaError_t row_budget(const void* kernel, int ctas, int64_t fixed,
+                       int64_t* budget) {
+    int dev = 0, per_sm = 0, per_block = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    // the CTAs that must share one SM for every CTA to run in one wave
+    // split its shared memory (1 KB of each CTA's is reserved by the system)
+    const int per_sm_ctas = std::min(8, std::max(1, (ctas + sms - 1) / sms));
+    *budget = std::min<int64_t>(per_block, per_sm / per_sm_ctas - 1024)
+        - static_cast<int64_t>(attr.sharedSizeBytes) - fixed;
+    return cudaSuccess;
+}
+
+// Rows of K doubles that fit ``budget`` bytes, at most ``rows``.
+int rows_in(int64_t budget, int K, int rows) {
+    const int64_t row_bytes = static_cast<int64_t>(K) * 8;
+    if (budget <= 0 || row_bytes <= 0) return 0;
+    return static_cast<int>(std::max<int64_t>(
+        0, std::min<int64_t>(rows, budget / row_bytes)));
 }
 
 }  // namespace
@@ -254,31 +704,12 @@ extern "C" int place_step_launch(void* pool, const void* w_in,
                                  void* smem_rows, void* stream) {
     if (A <= 0) return 0;
     if (D <= 0 || D > kThreads) return static_cast<int>(cudaErrorInvalidValue);
-    int dev = 0, per_sm = 0, per_block = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(
-            &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(
-            &per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    cudaFuncAttributes attr;
-    if (err == cudaSuccess)
-        err = cudaFuncGetAttributes(&attr, place_step_kernel);
+    int64_t budget = 0;
+    cudaError_t err = row_budget(reinterpret_cast<const void*>(
+                                     place_step_kernel),
+                                 A, 4LL * D * 8, &budget);
     if (err != cudaSuccess) return static_cast<int>(err);
-    // the CTAs that must share one SM for every lane to run in one wave
-    // split its shared memory (1 KB of each CTA's is reserved by the system)
-    const int per_sm_ctas = std::min(8, std::max(1, (A + sms - 1) / sms));
-    int64_t budget = std::min<int64_t>(per_block, per_sm / per_sm_ctas - 1024);
-    budget -= static_cast<int64_t>(attr.sharedSizeBytes) + 4LL * D * 8;
-    const int64_t row_bytes = static_cast<int64_t>(K) * 8;
-    int n_smem = 0;
-    if (budget > 0 && row_bytes > 0)
-        n_smem = static_cast<int>(std::min<int64_t>(rows, budget / row_bytes));
-    n_smem = std::max(0, std::min(n_smem, n_cap));
+    const int n_smem = std::min(rows_in(budget, K, rows), n_cap);
     const size_t dyn = (static_cast<size_t>(n_smem) * K + 4 * D) * 8;
     err = cudaFuncSetAttribute(place_step_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -294,5 +725,56 @@ extern "C" int place_step_launch(void* pool, const void* w_in,
         static_cast<int32_t*>(w_out), static_cast<int32_t*>(bad_out),
         static_cast<int32_t*>(j_rec), A, L, n_cap, K, D, n_smem, purchase,
         similarity);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one instance's two_phase placement over P phases (module notes
+// above): one CTA when ``sequential`` (filling), else one per phase.
+// ``pool`` holds (CTAs, rows, K) float64 rows for those past the
+// shared-memory budget; a phase that would buy more than ``rows`` nodes
+// stops with bad = -2 instead of writing past them.  The
+// rows kept in shared memory are written to *smem_rows.  Returns
+// cudaGetLastError().
+extern "C" int two_phase_launch(const void* walk, const void* bounds,
+                                const void* cap, const void* dem,
+                                const void* start, const void* end,
+                                const void* dn, void* pool, double quantum,
+                                void* out, int P, int n, int K, int D,
+                                int rows, int similarity, int sequential,
+                                void* smem_rows, void* stream) {
+    if (P <= 0) return 0;
+    if (D <= 0 || D > 32) return static_cast<int>(cudaErrorInvalidValue);
+    const int ctas = sequential ? 1 : P;
+    const int64_t fixed = 7LL * D * 8 + 4LL * ((n + 31) / 32);
+    int64_t budget = 0;
+    cudaError_t err = row_budget(reinterpret_cast<const void*>(
+                                     two_phase_kernel),
+                                 ctas, fixed, &budget);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (budget < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int n_smem = rows_in(budget, K, rows);
+    const size_t dyn = static_cast<size_t>(n_smem) * K * 8 + fixed;
+    err = cudaFuncSetAttribute(two_phase_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dyn));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *static_cast<int*>(smem_rows) = n_smem;
+    two_phase_kernel<<<ctas, kWalkThreads, dyn,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(walk), static_cast<const int32_t*>(bounds),
+        static_cast<const double*>(cap), static_cast<const double*>(dem),
+        static_cast<const int32_t*>(start), static_cast<const int32_t*>(end),
+        static_cast<const double*>(dn), static_cast<double*>(pool), quantum,
+        static_cast<int32_t*>(out), P, n, K, D, rows, n_smem, similarity,
+        sequential);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the barrier chain (``barrier_chain_kernel``) on one CTA; out is
+// one int32.  Returns cudaGetLastError().
+extern "C" int barrier_chain_launch(int steps, void* out, void* stream) {
+    barrier_chain_kernel<<<1, kWalkThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        steps, static_cast<int32_t*>(out));
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Launch wrapper of the compiled placement stepper (``csrc/place_step.cu``).
+"""Launch wrappers of the placement steppers (``csrc/place_step.cu``).
 
 ``sub_phase(pool, w, lens, dem_seq, s_seq, e_seq, dn_seq, capx, cap_rows,
 quantum, purchase, similarity, rows)`` runs every attempt step of one
@@ -8,16 +8,28 @@ parts), so the host reads all of it back in one copy; ``pool`` is updated in
 place.  The arguments and the result are those of ``ref.sub_phase_ref``.
 ``rows`` bounds the pool rows any lane can reach: the largest w plus L when
 ``purchase``, the largest w otherwise; it must not exceed the pool's n_cap.
-
-For CUDA tensors it launches the hand-written kernel (built at first use),
-adds one to ``sub_phase.launches`` and, when ``telemetry`` is a dict, stores
-there the rows each lane kept in shared memory (``smem_rows``); for CPU
-tensors it returns the plain version.  It never falls back: a CUDA build or
-launch that fails raises.
-
-Replaces the scan body of ``repro.core.place_step`` with its scorer
+It replaces the scan body of ``repro.core.place_step`` with its scorer
 ``repro.kernels.ops.fit_scores_step``; on the card it is the redesign of the
 per-step fit kernel for the compiled path.
+
+``two_phase_walk(walk, bounds, cap, dem, start, end, dn, T, quantum,
+similarity, sequential, rows)`` runs one instance's whole ``two_phase``
+placement, every node-type's own pack and cross-fill, and returns one int32
+tensor ``[w (P) | bad (P) | steps (P) | phase (n) | node (n)]``
+(``split_walk`` cuts it); the arguments and the result are those of
+``ref.two_phase_ref``.  ``rows`` bounds the nodes a phase may buy (the
+longest own part of the walk is always enough); a phase that needs more
+stops with bad = -2, and the wrapper then raises ``ValueError``, after one
+copy of the P bad entries to the host.  It replaces, on the
+single-instance path, the per-task loop of ``repro.core.placement.two_phase``
+whose scorer is ``repro.kernels.fit.fit_scores_pallas``: one launch per
+call instead of one per attempted task.
+
+For CUDA tensors each wrapper launches its kernel entry (built at first
+use), adds one to its own ``launches`` count and, when ``telemetry`` is a
+dict, stores there the pool rows each CTA kept in shared memory
+(``smem_rows``); for CPU tensors it returns the plain version.  It never
+falls back: a CUDA build or launch that fails raises.
 """
 
 from __future__ import annotations
@@ -28,7 +40,7 @@ import torch
 
 from . import ref
 
-__all__ = ["sub_phase", "split"]
+__all__ = ["sub_phase", "split", "two_phase_walk", "split_walk"]
 
 
 def _check(pool, w, lens, dem_seq, s_seq, e_seq, dn_seq, capx, cap_rows,
@@ -115,3 +127,102 @@ def sub_phase(pool: torch.Tensor, w: torch.Tensor, lens: torch.Tensor,
 
 
 sub_phase.launches = 0
+
+
+# two_phase_walk keeps demands, thresholds and demand / cap of a task in one
+# warp's lanes
+MAX_WALK_D = 32
+
+
+def _check_walk(walk, bounds, cap, dem, start, end, dn, T: int, rows: int):
+    if cap.dim() != 2 or dem.dim() != 2 or walk.dim() != 1:
+        raise ValueError(
+            f"need walk (E,), cap (P, D) and dem (n, D), got "
+            f"{tuple(walk.shape)}, {tuple(cap.shape)} and {tuple(dem.shape)}")
+    P, D = cap.shape
+    n = dem.shape[0]
+    want = {
+        "walk": (walk, torch.int32, tuple(walk.shape)),
+        "bounds": (bounds, torch.int32, (P, 3)),
+        "cap": (cap, torch.float64, (P, D)),
+        "dem": (dem, torch.float64, (n, D)),
+        "start": (start, torch.int32, (n,)),
+        "end": (end, torch.int32, (n,)),
+        "dn": (dn, torch.float64, (n,)),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != dem.device:
+            raise ValueError("all inputs must share one device")
+    if P == 0 or D == 0 or T <= 0:
+        raise ValueError(f"need P, D and T >= 1, got {P}, {D} and {T}")
+    if rows < 0:
+        raise ValueError(f"rows={rows} must be >= 0")
+
+
+def split_walk(out, P: int, n: int):
+    """(w (P,), bad (P,), steps (P,), phase (n,), node (n,)) views of
+    ``two_phase_walk``'s result, a tensor or its numpy copy."""
+    return (out[:P], out[P: 2 * P], out[2 * P: 3 * P],
+            out[3 * P: 3 * P + n], out[3 * P + n: 3 * P + 2 * n])
+
+
+def two_phase_walk(walk: torch.Tensor, bounds: torch.Tensor,
+                   cap: torch.Tensor, dem: torch.Tensor, start: torch.Tensor,
+                   end: torch.Tensor, dn: torch.Tensor, T: int,
+                   quantum: float, similarity: bool, sequential: bool,
+                   rows: int, telemetry: dict | None = None) -> torch.Tensor:
+    """One instance's placement; ``[w | bad | steps | phase | node]``."""
+    _check_walk(walk, bounds, cap, dem, start, end, dn, T, rows)
+    if dem.device.type == "cpu":
+        out = ref.two_phase_ref(walk, bounds, cap, dem, start, end, dn, T,
+                                quantum, similarity, sequential, rows)
+    else:
+        out = _launch_walk(walk, bounds, cap, dem, start, end, dn, T,
+                           quantum, similarity, sequential, rows, telemetry)
+    P = cap.shape[0]
+    short = (out[P: 2 * P].cpu() == -2).nonzero().flatten().tolist()
+    if short:
+        raise ValueError(f"rows={rows} is below the nodes phases {short} "
+                         f"buy")
+    return out
+
+
+def _launch_walk(walk, bounds, cap, dem, start, end, dn, T, quantum,
+                 similarity, sequential, rows, telemetry):
+    if dem.device.type != "cuda":
+        raise ValueError(f"unsupported device {dem.device}")
+    args = (walk, bounds, cap, dem, start, end, dn)
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("the two_phase kernel takes contiguous tensors")
+    P, D = cap.shape
+    n = dem.shape[0]
+    if D > MAX_WALK_D:
+        raise ValueError(
+            f"the two_phase kernel takes D <= {MAX_WALK_D}, got {D}")
+    out = torch.empty(3 * P + 2 * n, dtype=torch.int32, device=dem.device)
+    K = T * D
+    pool = torch.empty((1 if sequential else P, max(rows, 1), K),
+                       dtype=torch.float64, device=dem.device)
+    from . import build
+
+    lib = build.load("place_step")
+    stream = torch.cuda.current_stream(dem.device).cuda_stream
+    smem_rows = ctypes.c_int(0)
+    err = lib.two_phase_launch(
+        *(t.data_ptr() for t in args), pool.data_ptr(), float(quantum),
+        out.data_ptr(), P, n, K, D, int(rows), int(similarity),
+        int(sequential), ctypes.addressof(smem_rows), stream)
+    if err != 0:
+        raise RuntimeError(f"two_phase kernel launch failed: CUDA error {err}")
+    two_phase_walk.launches += 1
+    if telemetry is not None:
+        telemetry["smem_rows"] = smem_rows.value
+    return out
+
+
+two_phase_walk.launches = 0

@@ -13,7 +13,7 @@ import torch
 
 __all__ = ["congestion_ref", "congestion_many_ref", "congestion_lp_ref",
            "fit_scores_ref", "fit_scores_many_ref", "span_mask",
-           "sub_phase_ref"]
+           "sub_phase_ref", "two_phase_ref"]
 
 _EPS = 1e-7  # the placement engines' feasibility slack
 
@@ -159,4 +159,117 @@ def sub_phase_ref(pool, w, lens, dem_seq, s_seq, e_seq, dn_seq, capx,
         j_rec[step] = torch.where(placed, j, -1).to(torch.int32)
     out[:A] = w.to(torch.int32)
     out[A: 2 * A] = bad.to(torch.int32)
+    return out
+
+
+def two_phase_ref(walk, bounds, cap, dem, start, end, dn, T: int,
+                  quantum: float, similarity: bool, sequential: bool,
+                  rows: int, work: dict | None = None):
+    """One instance's whole ``two_phase`` placement, attempt by attempt: the
+    ``two_phase`` entry of ``csrc/place_step.cu`` as a Python loop, in
+    float64, on the inputs' device.
+
+    walk: (E,) int32 task ids; bounds: (P, 3) int32, per phase p (a
+    node-type, in two_phase's type order) the walk's entries [lo, own) are
+    the type's own tasks in start order and [own, hi) its cross-fill
+    candidates in increasing h_avg order (ignored unless ``sequential``,
+    which also makes the phases share one placed set).  cap (P, D) float64
+    per phase; dem (n, D) float64; start / end (n,) int32 inclusive slots
+    below T; dn (n,) float64 demand norms (read by similarity steps only).
+    ``rows`` bounds the nodes one phase may buy.
+
+    An entry whose task is placed is skipped.  An own entry is placed by the
+    policy fit (similarity when ``similarity``, else first), buying a node
+    on a miss; a demand above cap + EPS stops the walk instead, naming the
+    task in ``bad``, and so does a purchase past ``rows`` nodes, with
+    ``bad`` = -2.  A cross-fill entry is placed first fit, never buying;
+    with no node open the cross-fill is skipped.
+
+    Returns one int32 tensor ``[w (P) | bad (P) | steps (P) | phase (n) |
+    node (n)]``: per phase the nodes bought, the task that could not fit
+    (-1 = none, -2 = ``rows`` too small) and the attempts made; per task the
+    phase and phase-local node it was placed in (-1 = not placed).
+    ``work``, when a dict, gets what the attempts needed, scanning each
+    node's span slot by slot and dimension by dimension: the comparisons
+    (``scored``: up to a node's first violation, and a first-fit attempt
+    stops at its first feasible node), the elements of the feasible nodes a
+    similarity attempt scored (``similar``) and the elements debited
+    (``debited``).
+    """
+    dev = dem.device
+    P, D = cap.shape
+    n = dem.shape[0]
+    out = torch.full((3 * P + 2 * n,), -1, dtype=torch.int32, device=dev)
+    w_out, bad_out, steps_out = out[:P], out[P: 2 * P], out[2 * P: 3 * P]
+    phase_out, node_out = out[3 * P: 3 * P + n], out[3 * P + n:]
+    w_out.zero_()
+    steps_out.zero_()
+    walk_l, bounds_l = walk.tolist(), bounds.tolist()
+    s_l, e_l = start.tolist(), end.tolist()
+    tally = dict.fromkeys(("scored", "similar", "debited"), 0)
+    placed = [False] * n
+    pool = torch.empty((rows, T, D), dtype=torch.float64, device=dev)
+    for p in range(P):
+        lo, own_hi, hi = bounds_l[p]
+        if not sequential:
+            hi = own_hi
+        c = cap[p]
+        w = steps = 0
+        stop = False
+        for i in range(lo, hi):
+            u = walk_l[i]
+            if placed[u]:
+                continue
+            own = i < own_hi
+            if not own and w == 0:
+                break
+            s, e = s_l[u], e_l[u]
+            d = dem[u]
+            steps += 1
+            j = -1
+            if w:
+                rs = pool[:w, s: e + 1]
+                viol = (rs < d - _EPS).flatten(1)
+                feas = ~viol.any(dim=1)
+                size = viol.shape[1]
+                # comparisons a scan of each node needs: up to its first
+                # violation, all of its span's elements when it fits
+                need = torch.where(feas, size, viol.to(torch.int8).argmax(
+                    dim=1) + 1)
+                sim = similarity and own
+                if not sim and bool(feas.any()):
+                    need = need[: int(feas.to(torch.int8).argmax()) + 1]
+                tally["scored"] += int(need.sum())
+                if bool(feas.any()):
+                    if sim:
+                        tally["similar"] += int(feas.sum()) * size
+                        rn = rs / c
+                        dot = (rn * (d / c)).sum(dim=(1, 2))
+                        norm2 = (rn * rn).sum(dim=(1, 2))
+                        score = dot / (dn[u] * torch.sqrt(norm2) + 1e-30)
+                        key = torch.round(score * quantum) / quantum
+                        j = int(torch.where(feas, key, -torch.inf).argmax())
+                    else:
+                        j = int(feas.to(torch.int8).argmax())
+            if j < 0 and own:
+                if bool((d > c + _EPS).any()):
+                    bad_out[p] = u
+                    stop = True
+                    break
+                if w == rows:
+                    bad_out[p] = -2
+                    stop = True
+                    break
+                j, w = w, w + 1
+                pool[j] = c
+            if j >= 0:
+                pool[j, s: e + 1] -= d
+                tally["debited"] += (e - s + 1) * D
+                phase_out[u], node_out[u] = p, j
+                placed[u] = True
+        w_out[p], steps_out[p] = w, steps
+        if stop and sequential:
+            break
+    if work is not None:
+        work.update(tally)
     return out

@@ -10,9 +10,12 @@ pytest worker collects the same tests.  This file imports no JAX.
 Tolerances: congestion rtol/atol 1e-5 (float32 sums in another order; two
 launches on the same inputs bit-equal); fit margin bit-equal, dot/norm
 rtol/atol 1e-5; the placement stepper bit-equal (node choices, counts and
-the pool after the sub-phase).
+the pool after the sub-phase); the two_phase kernel bit-equal (counts,
+stopping tasks, attempts and every task's node), also where ``rows`` is too
+small and it stops.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -315,3 +318,125 @@ def test_compiled_placement_has_no_pool_cap_on_the_card(dev, monkeypatch):
         for a, b in zip(got, want):
             assert np.array_equal(a.assign, b.assign)
             assert np.array_equal(a.node_type, b.node_type)
+
+
+def _walk_inputs(rng, n, P, D, T, dem_scale, filling, unfit):
+    """A random single-instance walk (the ``two_phase`` kernel's inputs):
+    tasks mapped to P phases, own parts in start order, cross-fill parts of
+    the later phases' tasks (filling only).  With ``unfit`` one task's
+    demand exceeds its phase's capacity.  Returns (args, rank of each task's
+    phase, rows)."""
+    cap = 0.5 + rng.random((P, D))
+    dem = rng.random((n, D)) * dem_scale * cap.min()
+    start = rng.integers(0, T, n)
+    end = np.minimum(start + rng.integers(0, T // 2 + 1, n), T - 1)
+    phase = rng.integers(0, P, n)
+    if unfit:
+        u = int(rng.integers(0, n))
+        dem[u] = cap[phase[u]] * 1.5
+    parts = []
+    for p in range(P):
+        mine = np.flatnonzero(phase == p)
+        parts.append(mine[np.lexsort((mine, start[mine]))])
+        later = np.flatnonzero(phase > p) if filling else np.zeros(0, int)
+        parts.append(rng.permutation(later))
+    ends = np.cumsum([0] + [len(x) for x in parts])
+    bounds = np.stack([ends[0:-1:2], ends[1::2], ends[2::2]], axis=1)
+    i32, f64 = torch.int32, torch.float64
+    args = [torch.as_tensor(np.concatenate(parts), dtype=i32),
+            torch.as_tensor(bounds, dtype=i32), torch.as_tensor(cap, dtype=f64),
+            torch.as_tensor(dem, dtype=f64), torch.as_tensor(start, dtype=i32),
+            torch.as_tensor(end, dtype=i32),
+            torch.as_tensor(0.5 + rng.random(n), dtype=f64)]
+    rows = max(int((phase == p).sum()) for p in range(P))
+    return args, phase, rows
+
+
+@pytest.mark.parametrize("similarity", [False, True])
+@pytest.mark.parametrize("filling", [False, True])
+@pytest.mark.parametrize("n,P,D,T,dem_scale,unfit", [
+    (1, 1, 1, 1, 0.3, False),
+    (200, 4, 5, 23, 0.2, False),     # a Table-I-like walk
+    (1000, 10, 5, 23, 0.3, False),   # Table I's width
+    (300, 2, 8, 200, 0.9, False),    # rows of 12.8 KB: most spill
+    (120, 3, 3, 12, 0.3, True),      # a task no node of its type holds
+    (60, 5, 32, 4, 0.2, False),      # the widest D the kernel takes
+])
+def test_two_phase_kernel_matches_plain(dev, similarity, filling, n, P, D, T,
+                                        dem_scale, unfit):
+    rng = np.random.default_rng(n * 7 + P + D + int(unfit))
+    args, phase, rows = _walk_inputs(rng, n, P, D, T, dem_scale, filling,
+                                     unfit)
+    want = ref.two_phase_ref(*args, T, 1e9, similarity, filling, rows)
+    before = kstep.two_phase_walk.launches
+    info = {}
+    got = kstep.two_phase_walk(*[t.to(dev) for t in args], T, 1e9,
+                               similarity, filling, rows, telemetry=info)
+    torch.cuda.synchronize()
+    assert kstep.two_phase_walk.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    w, bad, _, placed_in, _ = kstep.split_walk(want.numpy(), P, n)
+    assert (bad >= 0).any() == unfit
+    if T == 200:
+        assert int(w.max()) > info["smem_rows"]  # the spill path ran
+    if filling and n >= 200:
+        # cross-fill placed tasks of later phases, whose own entries the
+        # walk then skipped
+        assert (placed_in != phase).any()
+
+
+@pytest.mark.parametrize("filling", [False, True])
+@pytest.mark.parametrize("rows", [0, 2])
+def test_two_phase_kernel_stops_where_rows_run_out(dev, filling, rows):
+    """Phases that need more than ``rows`` nodes stop with bad = -2 instead
+    of writing past the pool, bit-equal to the plain version, and the
+    wrapper raises."""
+    rng = np.random.default_rng(11 + rows)
+    args, _, _ = _walk_inputs(rng, 120, 3, 3, 12, 0.9, filling, False)
+    want = ref.two_phase_ref(*args, 12, 1e9, True, filling, rows)
+    bad = kstep.split_walk(want.numpy(), 3, 120)[1]
+    assert (bad == -2).any()
+    got = kstep._launch_walk(*[t.to(dev) for t in args], 12, 1e9, True,
+                             filling, rows, None)
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match=f"rows={rows}"):
+        kstep.two_phase_walk(*[t.to(dev) for t in args], 12, 1e9, True,
+                             filling, rows)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 1000])
+def test_barrier_chain_counts_its_steps(dev, steps):
+    from repro_torch.kernels import build
+
+    out = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    err = build.load("place_step").barrier_chain_launch(
+        steps, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0 and int(out.item()) == steps
+
+
+def test_two_phase_route_launches_once_per_call(dev):
+    from repro_torch.core import ALGORITHMS, penalty_map, rightsize, two_phase
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.workload import SyntheticSpec, synthetic_instance
+
+    p = synthetic_instance(SyntheticSpec(n=80, m=4, D=3, T=12, seed=3))
+    mapping = penalty_map(p, "avg")
+    for fit in ("first", "similarity"):
+        for filling in (False, True):
+            reset_launch_counts()
+            got = two_phase(p, mapping, fit=fit, filling=filling,
+                            backend="kernel")
+            counts = launch_counts()
+            assert counts["two_phase"] == 1 and counts["fit_scores"] == 0
+            want = two_phase(p, mapping, fit=fit, filling=filling,
+                             device="cpu")
+            assert np.array_equal(got.assign, want.assign)
+            assert np.array_equal(got.node_type, want.node_type)
+    reset_launch_counts()
+    for algo in ALGORITHMS:
+        a = rightsize(p, algo, backend="kernel")
+        b = rightsize(p, algo, device="cpu")
+        assert a.cost(p) == b.cost(p)
+        assert np.array_equal(a.assign, b.assign)
+    counts = launch_counts()
+    assert counts["two_phase"] == 4 + 4 + 2 + 2 and counts["fit_scores"] == 0
