@@ -69,7 +69,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    Phase 5 also times the G=1 congestion launch (``congestion``, the
    reference's ``congestion_pallas``) at n=1000, T'=24, K=5 against
    ``torch.bmm``, and prints the launch shape the kernel picks for each
-   congestion shape it times.
+   congestion shape it times;
+9. tolerance mode: ``FleetEngine(solver=SolverConfig(tol=5e-3, iters=4000,
+   operator="pallas"), placement=PlacementConfig(engine="compiled"))
+   .evaluate`` over the same fleet, counts set to 0 just before and read
+   just after: every lane converged with kkt <= float32(5e-3), congestion
+   launches = 13 + the most iterations (12 power iterations, the initial
+   apply, one per attempt), each tol lower bound <= phase 6's legacy
+   objective and phase 6's lower bound <= each tol objective (rel 1e-6; both
+   are certified bounds), and the last tol-mode apply (Ruiz-scaled weights,
+   a mass-scaled x) replayed on the plain version (rtol/atol 1e-5).  Then
+   the same evaluate with ``operator="dense"``: objectives within the gap
+   two tol-converged solves can show, each certified bound under the other
+   run's objective, costs equal wherever the two LP mappings are (another
+   summation order moves a tolerance-stopped iterate, and canonical
+   rounding of a degenerate LP can then pick another type; the flips are
+   counted).  Then a 16-instance sweep (n = 850..1000, 4 seeds each) under
+   ``SweepConfig(warm_start=4)``, sequential and ``pipeline=True``: 4 and 1
+   solver dispatches, the same arithmetic, so every mapping and cost
+   equal, objectives within that gap (bit-equality reported).  It prints each run's lp_s beside phase 4's
+   legacy ``pallas`` LP, iterations and restarts cold and warm, and the tol
+   LP's device busy time and idle share from a marker-checked profile.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -102,6 +122,8 @@ FIT_RTOL = FIT_ATOL = 1e-5     # dot / norm: float32 sums in another order
 LB_RTOL = 1e-4                 # two float32 PDHG trajectories
 COST_RTOL = 1e-5               # a flipped placement moves a whole node price
 FLEET = 16                     # Table-I instances in the main path's fleet
+TOL = 5e-3                     # phase 9's SolverConfig(tol=...)
+BOUND_RTOL = 1e-6              # phase 9's certified cross-bounds
 
 SOURCES = {
     # one kernel, two entries: the TPU contract at G = B*m groups, and the
@@ -416,6 +438,34 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class LastCall:
+    """Wraps a kernel wrapper to keep the last call's inputs by reference
+    (the LP never writes to a tensor it has passed on, so no copy)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.args = None
+
+    def __call__(self, *args):
+        self.args = args
+        return self.orig(*args)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def objective_slack(a, b, tol=TOL) -> float:
+    """Objective gap two tol-converged solves of one LP can show: each is
+    within tol * (1 + |primal| + |dual|) of the optimum."""
+    return tol * (2.0 + a.objective + a.lower_bound
+                  + b.objective + b.lower_bound)
 
 
 # --- phases ------------------------------------------------------------------
@@ -758,6 +808,218 @@ def compiled_phase(torch, np, ref, kernels, fleet, spec, res_np, tm, tn,
     return {"launches": launches, "kinfo": dict(
         main, max_abs_err=pool_err, mismatches=mismatches, library_ms=None,
         calls=n_disp)}
+
+
+def iter_summary(np, stats) -> dict:
+    """Median/max iterations and total restarts over some lanes' stats."""
+    its = np.concatenate([s.iterations for s in stats])
+    return {"lanes": int(its.size), "median_iters": float(np.median(its)),
+            "max_iters": int(its.max()),
+            "restarts": int(sum(int(s.restarts.sum()) for s in stats))}
+
+
+def compare_tol_runs(np, a_res, b_res, exact=False) -> dict:
+    """Hold two tol-mode evaluates of one fleet against each other: every
+    lane converged in both, objectives within ``objective_slack``, each
+    lower bound under the other run's objective (both are certified), and
+    each instance's costs equal wherever its two LP mappings are.  With
+    ``exact`` (two runs of the same arithmetic, which only ``scatter_add_``
+    atomics can tell apart) every mapping and cost must be equal too.
+    Returns the counts (instances whose mappings differ, tasks that differ,
+    instances whose costs differ, bit-equal (objective, bound) pairs), each
+    algorithm's fleet cost in both runs, and the failed checks, which the
+    caller raises after printing the counts."""
+    out = {"instances": len(a_res.lp_results), "mapping_differs": 0,
+           "tasks_differ": 0, "cost_differs": 0, "bounds_bit_equal": 0,
+           "fleet_costs": {algo: [sum(a_res.costs(algo)),
+                                  sum(b_res.costs(algo))]
+                           for algo in a_res.algos},
+           "errors": []}
+    for i, (a, b) in enumerate(zip(a_res.lp_results, b_res.lp_results)):
+        if not (a.converged and b.converged):
+            out["errors"].append(f"instance {i}: a lane did not converge")
+        slack = objective_slack(a, b)
+        if abs(a.objective - b.objective) > slack \
+                or a.lower_bound > b.objective * (1 + BOUND_RTOL) \
+                or b.lower_bound > a.objective * (1 + BOUND_RTOL):
+            out["errors"].append(
+                f"instance {i}: bounds [{a.lower_bound}, {a.objective}] vs "
+                f"[{b.lower_bound}, {b.objective}] (slack {slack})")
+        diff = int((a.mapping != b.mapping).sum())
+        same_cost = a_res.entries[i]["costs"] == b_res.entries[i]["costs"]
+        if (diff == 0 or exact) and not same_cost:
+            out["errors"].append(f"instance {i}: costs differ")
+        if diff and exact:
+            out["errors"].append(f"instance {i}: {diff} tasks map "
+                                 f"differently")
+        out["mapping_differs"] += diff > 0
+        out["tasks_differ"] += diff
+        out["cost_differs"] += not same_cost
+        out["bounds_bit_equal"] += (a.objective, a.lower_bound) == (
+            b.objective, b.lower_bound)
+    return out
+
+
+def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
+              report) -> dict:
+    """Phase 9: tolerance mode (see the module docstring).  Returns the tol
+    evaluate's kernel launches."""
+    import dataclasses
+
+    from repro_torch.core import (FleetEngine, PlacementConfig, SolverConfig,
+                                  SweepConfig, dispatch_count)
+    from repro_torch.core import batch as tbatch
+    from repro_torch.workload import SyntheticSpec, sweep_specs, synthetic_batch
+
+    t_phase = time.perf_counter()
+    solver = SolverConfig(tol=TOL, iters=4000, operator="pallas")
+    place = PlacementConfig(engine="compiled")
+    tol32 = float(np.float32(TOL))
+
+    def timed_evaluate(engine, problems):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.evaluate(problems)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # 9.1 the tol evaluate through the congestion kernel and the stepper
+    engine = FleetEngine(solver=solver, placement=place)
+    with LastCall(cong, "congestion_lp") as last:
+        kernels.reset_launch_counts()
+        res, wall = timed_evaluate(engine, fleet)
+        launches = kernels.launch_counts()
+    cold = iter_summary(np, res.stats)
+    want = sum(13 + int(s.iterations.max()) for s in res.stats)
+    log(f"tol: wall {wall:.3f} s; LP {res.timings['lp_s']:.3f} s, placement "
+        f"{res.timings['place_s']:.3f} s; launches {launches}; iterations "
+        f"{cold}")
+    if launches["congestion_many"] != want:
+        raise AssertionError(
+            f"tol congestion launches {launches['congestion_many']} != 13 + "
+            f"max iterations per bucket = {want}")
+    if launches["place_step"] <= 0 or any(
+            launches[k] for k in ("fit_scores_many", "fit_scores",
+                                  "two_phase")):
+        raise AssertionError(f"the tol evaluate launched {launches}")
+    for i, r in enumerate(res.lp_results):
+        legacy = res_np.lp_results[i]
+        if not (r.converged and r.kkt <= tol32):
+            raise AssertionError(
+                f"tol instance {i}: converged {r.converged}, kkt {r.kkt}")
+        if r.lower_bound > legacy.objective * (1 + BOUND_RTOL) \
+                or legacy.lower_bound > r.objective * (1 + BOUND_RTOL):
+            raise AssertionError(
+                f"tol instance {i}: bounds [{r.lower_bound}, {r.objective}] "
+                f"vs legacy [{legacy.lower_bound}, {legacy.objective}]")
+    log(f"tol: all {len(res.lp_results)} lanes converged (kkt <= "
+        f"{tol32!r}); congestion launches {want} = 13 + max iterations; tol "
+        f"and legacy certified bounds cross-hold (rel {BOUND_RTOL})")
+
+    # the last tol-mode apply, replayed on the plain version
+    start, end, w_all, x, Tp = last.args
+    batch = res.plan.buckets[0].batch
+    w_plain = torch.as_tensor(batch.weights(), dtype=torch.float32,
+                              device=w_all.device)
+    rows = x.sum(dim=2)
+    if torch.equal(w_all, w_plain) or float((rows - 1).abs().max()) < 1e-3:
+        raise AssertionError("the recorded tol apply is not Ruiz-scaled")
+    e_tol = check_congestion_lp(torch, ref, cong, start, end, w_all, x, Tp,
+                                "tol-mode apply")
+    log(f"tol: last apply (Ruiz-scaled weights, x row sums "
+        f"{float(rows.min()):.4f}..{float(rows.max()):.4f}) within rtol/atol "
+        f"{CONG_RTOL} of the plain version, max |err| {e_tol:.3g}")
+
+    # 9.2 the same evaluate with the dense operator
+    dense = FleetEngine(solver=dataclasses.replace(solver, operator="dense"),
+                        placement=place)
+    kernels.reset_launch_counts()
+    res_d, wall_d = timed_evaluate(dense, fleet)
+    if kernels.launch_counts()["congestion_many"]:
+        raise AssertionError("the dense tol evaluate launched the kernel")
+    cmp_d = compare_tol_runs(np, res, res_d)
+    log(f"tol: dense wall {wall_d:.3f} s, LP {res_d.timings['lp_s']:.3f} s; "
+        f"iterations {iter_summary(np, res_d.stats)}; against pallas: "
+        f"{cmp_d}")
+    failed = [f"pallas vs dense {e}" for e in cmp_d["errors"]]
+
+    # 9.3 the warm-started sweep, sequential and pipelined
+    grid = synthetic_batch(sweep_specs(SyntheticSpec(), seeds=4,
+                                       n=(850, 900, 950, 1000)))
+    sweeps = {}
+    for pipeline in (False, True):
+        eng = FleetEngine(solver=solver, placement=place,
+                          sweep=SweepConfig(warm_start=4, pipeline=pipeline))
+        d0 = dispatch_count()
+        r, w = timed_evaluate(eng, grid)
+        sweeps[pipeline] = (r, w, dispatch_count() - d0)
+    (seq, w_seq, d_seq), (pipe, w_pipe, d_pipe) = sweeps[False], sweeps[True]
+    warm = iter_summary(np, seq.stats[1:])
+    log(f"tol: sweep sequential wall {w_seq:.3f} s (LP "
+        f"{seq.timings['lp_s']:.3f} s, {d_seq} dispatches), pipelined "
+        f"{w_pipe:.3f} s (LP {pipe.timings['lp_s']:.3f} s, {d_pipe} "
+        f"dispatch); group 0 (cold) {iter_summary(np, seq.stats[:1])}, "
+        f"groups 1-3 (warm) {warm}")
+    if (d_seq, d_pipe) != (4, 1):
+        failed.append(f"sweep dispatches {d_seq} / {d_pipe}, want 4 / 1")
+    cmp_s = compare_tol_runs(np, seq, pipe, exact=True)
+    log(f"tol: sweep sequential vs pipelined: {cmp_s}")
+    failed += [f"sweep sequential vs pipelined {e}" for e in cmp_s["errors"]]
+
+    # 9.4 the tol LP alone under a marker-checked profile
+    def tol_lp():
+        t0 = time.perf_counter()
+        out = tbatch.solve_lp_many(batch, tol=TOL, iters=4000,
+                                   operator="pallas", full_output=True)
+        timing["wall_s"] = time.perf_counter() - t0
+        timing["iters"] = int(out[1].iterations.max())
+
+    timing: dict = {}
+    busy = idle = idle_unprof = None
+    try:
+        events = fn_events(torch, tol_lp, reps=1, warmup=0)
+    except RuntimeError as exc:
+        log(f"tol: the LP's profile failed ({exc}); busy time not measured")
+    else:
+        n_cong = sum("congestion_many_kernel" in name for name, _ in events)
+        if n_cong != 13 + timing["iters"]:
+            log(f"tol: the LP's profile kept {n_cong} of "
+                f"{13 + timing['iters']} congestion kernels; busy time not "
+                f"measured")
+        else:
+            busy = sum(d for _, d in events)
+            idle = 1.0 - busy / timing["wall_s"]
+            idle_unprof = 1.0 - busy / res.timings["lp_s"]
+            log(f"tol: LP profiled: {len(events)} device events, busy "
+                f"{busy:.6f} s of {timing['wall_s']:.3f} s, idle share "
+                f"{idle:.4f} ({idle_unprof:.4f} of run 1's unprofiled LP)")
+    lp_s = {"tol pallas": res.timings["lp_s"],
+            "tol dense": res_d.timings["lp_s"],
+            "sweep sequential": seq.timings["lp_s"],
+            "sweep pipelined": pipe.timings["lp_s"],
+            "legacy pallas (phase 4)": tm["lp_s"]}
+    log("tol: lp_s " + ", ".join(f"{k} {v:.3f}" for k, v in lp_s.items()))
+    phase_s = time.perf_counter() - t_phase
+    log(f"tol: phase 9 took {phase_s:.1f} s")
+    if failed:
+        raise AssertionError("tol: " + "; ".join(failed))
+    report["tol"] = {
+        "wall_s": wall, "timings": res.timings, "launches": launches,
+        "entries": res.entries, "iterations_cold": cold,
+        "iterations_dense": iter_summary(np, res_d.stats),
+        "iterations_sweep_cold": iter_summary(np, seq.stats[:1]),
+        "iterations_sweep_warm": warm,
+        "iterations_pipeline_warm": iter_summary(np, pipe.stats[1:]),
+        "dense": {"wall_s": wall_d, "timings": res_d.timings,
+                  "entries": res_d.entries, "against_pallas": cmp_d},
+        "sweep": {"sequential_wall_s": w_seq, "pipelined_wall_s": w_pipe,
+                  "dispatches": [d_seq, d_pipe], "compared": cmp_s},
+        "replay_max_abs_err": e_tol, "lp_s": lp_s,
+        "profiled": {"wall_s": timing.get("wall_s"), "device_busy_s": busy,
+                     "idle_share": idle,
+                     "idle_share_of_unprofiled_lp": idle_unprof},
+        "phase_s": phase_s}
+    return {"launches": launches, "max_abs_err": e_tol}
 
 
 def walk_work(args, work) -> tuple[float, float]:
@@ -1322,6 +1584,13 @@ def main(argv=None) -> int:
                              tm, tn, report)
     kinfo["place_step"] = stepper["kinfo"]
 
+    # 9. tolerance mode
+    tol = tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm, report)
+    for name in ("congestion_many", "congestion_lp"):  # one counter
+        kinfo[name]["tol_launches"] = tol["launches"]["congestion_many"]
+    kinfo["congestion_lp"]["max_abs_err"] = max(
+        kinfo["congestion_lp"]["max_abs_err"], tol["max_abs_err"])
+
     # the congestion kernel's one counter counts both of its entries; the
     # main path launches it only through congestion_lp
     runs = {"congestion_many": launches["congestion_many"],
@@ -1338,9 +1607,11 @@ def main(argv=None) -> int:
          "bound_ms": kinfo[name]["bound_ms"],
          "bound_by": kinfo[name]["bound_by"],
          "library_ms": kinfo[name]["library_ms"],
-         # the serial chain's floor, where a kernel is one (two_phase)
-         **({"latency_bound_ms": kinfo[name]["latency_bound_ms"]}
-            if "latency_bound_ms" in kinfo[name] else {})}
+         # the serial chain's floor, where a kernel is one (two_phase), and
+         # the tol-mode evaluate's launches (the congestion kernel)
+         **{key: kinfo[name][key] for key in ("latency_bound_ms",
+                                              "tol_launches")
+            if key in kinfo[name]}}
         for name in SOURCES]}
     report["kernels"] = kinfo
     if args.out is not None:

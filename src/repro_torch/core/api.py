@@ -95,7 +95,8 @@ def rightsize(problem: Problem, algo: str = "lp-map-f",
     return expand_solution(low, best)
 
 
-def _solve_lp_for(problem: Problem, lp_solver: str, lp_iters: int, device):
+def _solve_lp_for(problem: Problem, lp_solver: str, lp_iters: int, device,
+                  lp_tol: float | None = None):
     """(lp_result, certified lower bound) for one instance."""
     if lp_solver == "highs":
         res = _solve_lp(problem)
@@ -103,7 +104,8 @@ def _solve_lp_for(problem: Problem, lp_solver: str, lp_iters: int, device):
     if lp_solver == "pdhg":
         from .lp_pdhg import solve_lp_pdhg
 
-        res = solve_lp_pdhg(problem, iters=lp_iters, device=device)
+        res = solve_lp_pdhg(problem, iters=lp_iters, tol=lp_tol,
+                            device=device)
         return res, res.lower_bound
     raise ValueError(f"unknown lp_solver {lp_solver!r}; want 'highs'|'pdhg'")
 
@@ -127,19 +129,16 @@ def evaluate(problem: Problem, algos=ALGORITHMS, backend: str = "numpy",
     """Paper §VI protocol: per-algorithm best cost + the LP lower bound.
 
     ``lp_solver='highs'`` solves the mapping LP exactly (the paper's
-    setup); ``'pdhg'`` runs the legacy PDHG solver on ``device`` and
-    normalizes by its certified dual lower bound.  ``lp_tol`` (tolerance
-    stopping) is ROADMAP Queue 1, item 6.
+    setup); ``'pdhg'`` runs the PDHG solver on ``device`` and normalizes
+    by its certified dual lower bound.  ``lp_tol`` switches that solve to
+    tolerance stopping (the adaptive restarted engine; ``lp_iters`` caps
+    the worst case).
 
     Returns {'lb', 'costs': {algo: cost}, 'normalized': {algo: cost/lb},
     'wall_s': {algo: s}}.
     """
-    if lp_tol is not None:
-        raise NotImplementedError(
-            "tolerance-mode PDHG (lp_tol=...) is not ported yet "
-            "(ROADMAP Queue 1, item 6)")
     dev = resolve_device(device)
     low = lower_constraints(problem)
     trimmed, _ = trim_timeline(low.lowered)
-    lp_result, lb = _solve_lp_for(trimmed, lp_solver, lp_iters, dev)
+    lp_result, lb = _solve_lp_for(trimmed, lp_solver, lp_iters, dev, lp_tol)
     return _protocol_entry(trimmed, lp_result, lb, algos, backend, dev)

@@ -3,28 +3,31 @@
 A ``FleetEngine`` session, configured by three frozen dataclasses, runs the
 paper's §VI protocol over a fleet of instances on one device:
 
-  * ``SolverConfig``    — LP phase: the legacy fixed-iteration PDHG solve
-                          (``iters``, ``step_scale``) and its congestion
-                          operator form (``dense``/``cumsum``/``pallas``,
-                          the last one the hand-written CUDA kernel).
+  * ``SolverConfig``    — LP phase: the stopping regime (legacy fixed
+                          ``iters``, or ``tol`` with ``iters`` as the cap),
+                          the tol-mode machinery (adaptive steps, restarts,
+                          Ruiz scaling, primal weight, precision) and the
+                          congestion operator form (``dense``/``cumsum``/
+                          ``pallas``, the last one the hand-written CUDA
+                          kernel).
   * ``PlacementConfig`` — greedy phase: the numpy lockstep engine
                           (``batched``), the compiled stepper
                           (``compiled``: one CUDA launch per sub-phase) or
                           the per-instance loop (``loop``), the fit-policy
                           scan, and the scoring backend (``kernel`` = the
                           CUDA fit kernel).
-  * ``SweepConfig``     — fleet shape: shape-bucketed packing and the
-                          shard size of the LP dispatch.
+  * ``SweepConfig``     — fleet shape: shape-bucketed packing, the shard
+                          size of the LP dispatch, and warm-started sweep
+                          chains (one host call with ``pipeline``).
   * ``FleetEngine``     — ``pack(problems)``, ``solve(...)``,
                           ``place(...)``, ``evaluate(...)`` ->
                           ``FleetResult``.
 
 Ported from ``repro.core.engine``.  What this port does not have yet raises
-``NotImplementedError`` naming the ROADMAP item that brings it: tolerance
-mode (``SolverConfig(tol=...)``, Queue 1 item 6), warm-started and
-pipelined sweeps (``SweepConfig(warm_start=, pipeline=, devices=)``,
-item 6), scenario groups (``solve_scenarios``, item 11), and instances with
-active constraints (item 8).
+``NotImplementedError`` naming the ROADMAP entry that brings it: a sweep
+pipeline sharded over more than one card (``SweepConfig(devices>1)``,
+"multi-card pipeline sharding"), scenario groups (``solve_scenarios``,
+Queue 1 item 11), and instances with active constraints (item 8).
 
 ``device`` (None = the CUDA card) is where the LP solve runs, where the
 ``kernel`` backend scores placements and where the compiled stepper keeps
@@ -41,7 +44,9 @@ import numpy as np
 
 from ..device import resolve_device
 from .api import ALGORITHMS
-from .batch import OPERATORS, ProblemBatch, pack_problems, solve_lp_many
+from .batch import (DEFAULT_CHECK_EVERY, OPERATORS, PRECISIONS, SCALINGS,
+                    ProblemBatch, _sweep_impl, _check_devices, pack_problems,
+                    solve_lp_many)
 from .constraints import expand_solution, lower_constraints
 from .lp_pdhg import PDHGResult, PDHGState, SolveStats
 from .penalty import penalty_map
@@ -77,13 +82,24 @@ def _not_ported(what: str, item: str):
 class SolverConfig:
     """Mapping-LP phase configuration (``core.batch.solve_lp_many``).
 
-    The legacy fixed-step solve runs exactly ``iters`` iterations at
-    ``step_scale`` times the largest stable step; ``operator`` picks the
-    congestion-operator form.  ``tol`` (tolerance stopping) is ROADMAP
-    Queue 1, item 6: any value but None raises ``NotImplementedError``.
+    tol=None runs the legacy fixed-step, fixed-``iters`` solve at
+    ``step_scale`` times the largest stable step; tol=<float> runs the
+    adaptive restarted engine until every lane's normalized duality gap is
+    below tol, with ``iters`` as the cap.  ``adaptive`` / ``restart``
+    ablate the PDLP machinery; ``check_every`` is the tol-mode
+    convergence-check cadence; ``operator`` picks the congestion-operator
+    form.  The tol-mode speed knobs (legacy mode ignores them):
+    ``scaling='ruiz'`` equilibrates the operator by an exact change of
+    variables, ``precision='mixed'`` iterates in f32 with an f64
+    certificate and a final f64 polish ('f64' iterates in f64), ``omega``
+    balances the primal weight.
 
     >>> SolverConfig().tol is None
     True
+    >>> SolverConfig(scaling="log")
+    Traceback (most recent call last):
+        ...
+    ValueError: scaling must be one of ('none', 'ruiz'), got 'log'
     >>> SolverConfig(iters=0)
     Traceback (most recent call last):
         ...
@@ -92,13 +108,18 @@ class SolverConfig:
 
     tol: float | None = None
     iters: int = 2000
+    adaptive: bool = True
+    restart: bool = True
     operator: str = "auto"
     step_scale: float = 0.9
+    check_every: int = DEFAULT_CHECK_EVERY
+    scaling: str = "ruiz"
+    precision: str = "mixed"
+    omega: bool = True
 
     def __post_init__(self):
-        if self.tol is not None:
-            raise _not_ported("tolerance-mode PDHG (SolverConfig(tol=...))",
-                              "6")
+        if self.tol is not None and not self.tol > 0:
+            raise ValueError(f"tol must be positive or None, got {self.tol!r}")
         if self.iters < 1:
             raise ValueError(f"iters must be >= 1, got {self.iters!r}")
         if self.operator not in OPERATORS:
@@ -107,6 +128,16 @@ class SolverConfig:
         if not self.step_scale > 0:
             raise ValueError(
                 f"step_scale must be positive, got {self.step_scale!r}")
+        if self.check_every < 1:
+            raise ValueError(
+                f"check_every must be >= 1, got {self.check_every!r}")
+        if self.scaling not in SCALINGS:
+            raise ValueError(
+                f"scaling must be one of {SCALINGS}, got {self.scaling!r}")
+        if self.precision not in PRECISIONS:
+            raise ValueError(
+                f"precision must be one of {PRECISIONS}, "
+                f"got {self.precision!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,15 +186,26 @@ class PlacementConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SweepConfig:
-    """Fleet-shape configuration: bucketing and sharding.
+    """Fleet-shape configuration: bucketing, sharding, warm starts.
 
     max_buckets caps the shape-bucket partition of the packing planner
     (1 = single-bucket packing); bucket_overhead is the planner's cost of
     one extra bucket as a fraction of the single-bucket padded cells.
     shard_size splits each bucket's LP solve into dispatches of at most
-    that many instances (results unchanged).  ``warm_start``,
-    ``pipeline`` and ``devices`` (warm-started and pipelined sweeps) are
-    ROADMAP Queue 1, item 6, and raise ``NotImplementedError``.
+    that many instances (results unchanged).  warm_start=k treats the
+    instances as a grid-adjacent sweep chained in consecutive groups of k
+    (None = off; when k does not divide B the trailing group is smaller
+    and cold-starts).  pipeline=True runs the whole chain as one host call
+    with the state kept on the device (k must divide B).  ``devices``
+    needs ``pipeline``; None or 1 runs on the session's device, and more
+    than one card raises ``NotImplementedError`` (ROADMAP: multi-card
+    pipeline sharding).  warm_start excludes max_buckets > 1 and
+    shard_size: the chain packs every group to one common shape.
+
+    >>> SweepConfig(warm_start=2, max_buckets=3)
+    Traceback (most recent call last):
+        ...
+    ValueError: SweepConfig.warm_start and SweepConfig.max_buckets > 1 are mutually exclusive: ...
     """
 
     warm_start: int | None = None
@@ -174,11 +216,11 @@ class SweepConfig:
     devices: int | None = None
 
     def __post_init__(self):
-        if self.warm_start is not None or self.pipeline \
-                or self.devices is not None:
-            raise _not_ported(
-                "warm-started and pipelined sweeps (SweepConfig(warm_start="
-                ", pipeline=, devices=))", "6")
+        if self.warm_start is not None and self.warm_start <= 0:
+            raise ValueError(
+                f"warm_start must be a positive group size, got "
+                f"{self.warm_start!r}; use warm_start=None to disable "
+                f"warm-started sweep chaining")
         if self.shard_size is not None and self.shard_size <= 0:
             raise ValueError(
                 f"shard_size must be a positive instance count, got "
@@ -189,6 +231,31 @@ class SweepConfig:
         if self.bucket_overhead < 0:
             raise ValueError(
                 f"bucket_overhead must be >= 0, got {self.bucket_overhead!r}")
+        if self.warm_start is not None and self.max_buckets > 1:
+            raise ValueError(
+                "SweepConfig.warm_start and SweepConfig.max_buckets > 1 "
+                "are mutually exclusive: warm-started sweep chaining "
+                "packs every group to one common shape (states must "
+                "align lane-for-lane), while bucketing splits shapes apart")
+        if self.warm_start is not None and self.shard_size is not None:
+            raise ValueError(
+                "SweepConfig.warm_start and SweepConfig.shard_size are "
+                "mutually exclusive: the warm chain already dispatches "
+                "one group at a time (warm_start IS its shard size), so "
+                "a separate shard size would be silently ignored")
+        if self.pipeline and self.warm_start is None:
+            raise ValueError(
+                "SweepConfig.pipeline=True requires warm_start: the "
+                "pipeline IS the warm-started sweep chain run as one host "
+                "call; set warm_start=<group size> to enable it")
+        if self.devices is not None and not self.pipeline:
+            raise ValueError(
+                "SweepConfig.devices requires pipeline=True: it shards the "
+                "sweep pipeline's lanes; sequential dispatches don't shard")
+        if self.devices is not None and self.devices < 1:
+            raise ValueError(
+                f"devices must be >= 1 or None, got {self.devices!r}")
+        _check_devices(self.devices)
 
 
 # --- shape-bucketed packing planner ----------------------------------------
@@ -359,9 +426,11 @@ class FleetResult:
         {'lb', 'costs': {algo: cost}, 'normalized': {algo: cost/lb},
         'wall_s': {algo: s}} plus a 'solver' telemetry block in tol
         mode (iters/restarts/kkt/converged per instance).
-    stats: the ``SolveStats`` of each batched LP dispatch; empty in
-        legacy fixed-iters mode.
-    plan: the bucketed ``PackPlan``.
+    stats: the ``SolveStats`` of each batched LP dispatch (one per bucket
+        shard, or one per warm-started group); empty in legacy
+        fixed-iters mode.
+    plan: the bucketed ``PackPlan`` (None on the warm-sweep path, which
+        packs to one common shape by construction).
     timings: phase breakdown — pack_s / lp_s / place_s / total_s plus
         per-bucket lists bucket_lp_s / bucket_place_s and a
         ``placement`` block (which placement engine ran, stepper calls
@@ -510,11 +579,12 @@ class FleetEngine:
     ``evaluate`` runs the whole protocol into a ``FleetResult``.
 
         engine = FleetEngine(
-            solver=SolverConfig(operator="pallas"),
-            placement=PlacementConfig(backend="kernel"),
+            solver=SolverConfig(tol=5e-3, iters=4000, operator="pallas"),
+            placement=PlacementConfig(engine="compiled"),
         )                                   # device=None: the CUDA card
         result = engine.evaluate(problems)
         result.entries[0]["normalized"]     # cost / LP lower bound
+        result.entries[0]["solver"]         # iters, restarts, kkt, converged
 
     >>> from repro_torch.core import FleetEngine, SolverConfig
     >>> from repro_torch.workload import SyntheticSpec, synthetic_instance
@@ -538,6 +608,11 @@ class FleetEngine:
         self.sweep = sweep if sweep is not None else SweepConfig()
         self.algos = tuple(algos)
         self.device = resolve_device(device)
+        if self.sweep.warm_start is not None and self.solver.tol is None:
+            raise ValueError(
+                "warm_start requires a tolerance-stopped solver "
+                "(SolverConfig(tol=...)); fixed-iteration solves gain "
+                "nothing from a warm start")
         if self.placement.engine == "loop" and self.placement.fit != "best":
             raise ValueError(
                 "the per-instance 'loop' placement engine always scans "
@@ -614,18 +689,30 @@ class FleetEngine:
     # -- phase 1: the mapping-LP solve ---------------------------------
 
     def _solve_batch(self, batch: ProblemBatch, init=None):
-        """One LP dispatch under ``self.solver`` -> (results, [])."""
+        """One LP dispatch under ``self.solver`` -> (results, [stats])."""
         cfg = self.solver
-        res = solve_lp_many(batch, iters=cfg.iters, step_scale=cfg.step_scale,
-                            operator=cfg.operator, init=init,
-                            device=self.device)
-        return res, []
+        if cfg.tol is None:
+            res = solve_lp_many(batch, iters=cfg.iters,
+                                step_scale=cfg.step_scale,
+                                operator=cfg.operator, init=init,
+                                device=self.device)
+            return res, []
+        res, st = solve_lp_many(
+            batch, iters=cfg.iters, step_scale=cfg.step_scale,
+            operator=cfg.operator, tol=cfg.tol, adaptive=cfg.adaptive,
+            restart=cfg.restart, check_every=cfg.check_every, init=init,
+            scaling=cfg.scaling, precision=cfg.precision, omega=cfg.omega,
+            full_output=True, device=self.device)
+        return res, [st]
 
     @staticmethod
     def _slice_state(state: PDHGState | None, lo: int, hi: int):
         if state is None:
             return None
-        return PDHGState(x=state.x[lo:hi], y=state.y[lo:hi])
+        return PDHGState(
+            x=state.x[lo:hi], y=state.y[lo:hi],
+            eta=None if state.eta is None else state.eta[lo:hi],
+            omega=None if state.omega is None else state.omega[lo:hi])
 
     def _solve_bucket(self, bucket: Bucket, init: PDHGState | None = None):
         """Solve one bucket, sharded to ``sweep.shard_size`` instances per
@@ -651,7 +738,16 @@ class FleetEngine:
         ``PDHGResult`` per instance in submission order (``stats`` is
         empty in legacy mode).  Accepts a problem sequence, a
         ``ProblemBatch`` or a ``PackPlan``; ``init`` starts lane b from
-        lane b of a previous ``PDHGState`` and needs a single-bucket plan."""
+        lane b of a previous ``PDHGState``, needs a single-bucket plan and
+        is rejected on the warm-started sweep path, which seeds each
+        group from its predecessor."""
+        if self.sweep.warm_start is not None:
+            if init is not None:
+                raise ValueError(
+                    "solve(init=...) conflicts with "
+                    "SweepConfig.warm_start: the warm-started sweep "
+                    "chain seeds each group from its predecessor")
+            return self._solve_warm(self._trimmed(problems))
         plan = problems if isinstance(problems, PackPlan) \
             else self.pack(problems)
         if init is not None and plan.n_buckets > 1:
@@ -675,8 +771,34 @@ class FleetEngine:
     def _trimmed(self, problems) -> list[Problem]:
         if isinstance(problems, ProblemBatch):
             return list(problems.problems)
+        if isinstance(problems, PackPlan):
+            raise ValueError(
+                "this call takes the problem sequence itself (in "
+                "grid-adjacent order for a warm-started sweep), not a "
+                "PackPlan")
         return [trim_timeline(lower_constraints(p).lowered)[0]
                 for p in problems]
+
+    def _solve_warm(self, trimmed: list[Problem]):
+        """Warm-started sweep chain over consecutive groups of
+        ``sweep.warm_start`` instances; under ``pipeline=True`` the group
+        size must divide the instance count."""
+        cfg, k = self.solver, self.sweep.warm_start
+        if self.sweep.pipeline and len(trimmed) % k:
+            raise ValueError(
+                f"SweepConfig(pipeline=True) needs warm_start "
+                f"({k}) to divide the instance count ({len(trimmed)}): "
+                f"the pipeline chains equal-shaped groups; pad the fleet "
+                f"or adjust the group size")
+        groups = [trimmed[i : i + k] for i in range(0, len(trimmed), k)]
+        return _sweep_impl(
+            groups, tol=cfg.tol, iters=cfg.iters,
+            step_scale=cfg.step_scale, operator=cfg.operator,
+            adaptive=cfg.adaptive, restart=cfg.restart,
+            check_every=cfg.check_every, scaling=cfg.scaling,
+            precision=cfg.precision, omega=cfg.omega,
+            pipeline=self.sweep.pipeline, devices=self.sweep.devices,
+            device=self.device)
 
     # -- phase 2: greedy placement -------------------------------------
 
@@ -737,6 +859,8 @@ class FleetEngine:
         solve -> per-bucket lockstep placement -> entries merged back
         into submission order, as a ``FleetResult``."""
         t_start = time.perf_counter()
+        if self.sweep.warm_start is not None:
+            return self._evaluate_warm(problems, t_start)
         plan = problems if isinstance(problems, PackPlan) \
             else self.pack(problems)
         pack_s = time.perf_counter() - t_start
@@ -754,6 +878,8 @@ class FleetEngine:
             t0 = time.perf_counter()
             part = self._evaluate_bucket(bucket.batch, res, tels=tels)
             bucket_place_s.append(time.perf_counter() - t0)
+            if self.solver.tol is not None:
+                self._attach_solver(part, res)
             for i, entry, r in zip(bucket.indices, part, res):
                 entries[i] = entry
                 lp_results[i] = r
@@ -768,3 +894,36 @@ class FleetEngine:
         }
         return FleetResult(entries=entries, stats=stats, plan=plan,
                            timings=timings, lp_results=lp_results)
+
+    def _evaluate_warm(self, problems, t_start: float) -> FleetResult:
+        """The warm-started sweep path: one chained LP solve, then one
+        single-shape placement pass over the whole grid."""
+        trimmed = self._trimmed(problems)
+        t0 = time.perf_counter()
+        lp_results, stats = self._solve_warm(trimmed)
+        lp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch = problems if isinstance(problems, ProblemBatch) \
+            else pack_problems(trimmed, assume_trimmed=True)
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tels: list[dict] = []
+        entries = self._evaluate_bucket(batch, lp_results, tels=tels)
+        place_s = time.perf_counter() - t0
+        self._attach_solver(entries, lp_results)
+        timings = {
+            "pack_s": pack_s, "lp_s": lp_s, "place_s": place_s,
+            "bucket_lp_s": [lp_s], "bucket_place_s": [place_s],
+            "placement": _placement_telemetry(self.placement.engine, tels),
+            "total_s": time.perf_counter() - t_start,
+        }
+        return FleetResult(entries=entries, stats=stats, plan=None,
+                           timings=timings, lp_results=lp_results)
+
+    @staticmethod
+    def _attach_solver(entries, lp_results):
+        for entry, res in zip(entries, lp_results):
+            entry["solver"] = {"iters": res.iters,
+                               "restarts": res.restarts,
+                               "kkt": res.kkt,
+                               "converged": res.converged}

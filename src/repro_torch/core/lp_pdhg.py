@@ -14,8 +14,10 @@ F(x) bounds the LP optimum from above and the dual value
 G(y) = sum_u min_B (W^T y)(u, B) from below.
 
 The iteration lives in ``repro_torch.core.batch``; ``solve_lp_pdhg`` is its
-B=1 case.  This port runs the legacy fixed-step, fixed-``iters`` loop
-(``tol=None``); tolerance mode is ROADMAP Queue 1, item 6.
+B=1 case.  Two stopping regimes: ``tol=None``, the legacy fixed-step,
+fixed-``iters`` loop; and ``tol=<float>``, the PDLP-style engine (adaptive
+steps, restarts, early exit once the normalized gap is below ``tol``, with
+``iters`` as the cap).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 
 from .problem import Problem
 
-__all__ = ["PDHGResult", "PDHGState", "SolveStats", "solve_lp_pdhg"]
+__all__ = ["PDHGResult", "PDHGState", "SolveStats", "merge_stats",
+           "solve_lp_pdhg"]
 
 
 @dataclasses.dataclass
@@ -48,8 +51,11 @@ class PDHGState:
     """Final primal/dual iterates of a batched solve, in padded batch
     coordinates: pass as ``solve_lp_many(..., init=state)`` to start the
     next solve from here (lane b starts lane b; shapes are cropped or
-    zero-padded).  ``eta``/``omega`` are the tol-mode step state and stay
-    None in legacy mode.  Iterates are float32."""
+    zero-padded).  ``eta`` carries the adapted per-lane step size and
+    ``omega`` the adapted primal weight, so a warm-started tol-mode solve
+    resumes at them (None in legacy mode; ``omega`` None under
+    ``omega=False``).  Iterates are in original (unscaled) coordinates and
+    float32 whatever the solve's ``precision``."""
 
     x: np.ndarray  # (B, n, m) float32
     y: np.ndarray  # (B, T', m, D) float32
@@ -65,9 +71,16 @@ class PDHGState:
 class SolveStats:
     """Per-instance solver telemetry for one batched solve.
 
-    iterations: (B,) int; restarts: (B,) int; kkt: (B,) final normalized
-    duality gap; converged: (B,) bool; tol: None in legacy mode; state:
-    the final ``PDHGState``.
+    iterations: (B,) int — iterations-to-tolerance (== the cap when a
+        lane did not converge; == the fixed count in legacy mode).
+    restarts:   (B,) int — average-iterate restarts taken per lane.
+    kkt:        (B,) float — final normalized duality gap
+        (primal - dual) / (1 + |primal| + |dual|), the KKT-residual proxy
+        both the restart criterion and the stop rule use.
+    converged:  (B,) bool — lane reached ``tol``.
+    tol:        the tolerance used (None in legacy fixed-iters mode).
+    state:      final ``PDHGState`` for warm-starting a neighbour solve
+        (None for all but the last group of a pipelined sweep).
     """
 
     iterations: np.ndarray
@@ -91,14 +104,45 @@ class SolveStats:
         }
 
 
+def merge_stats(stats_list) -> dict:
+    """Aggregate ``SolveStats.summary`` across a warm-started sweep's
+    per-group solves into one flat telemetry dict (the concatenated
+    batch's summary plus the per-instance lists)."""
+    merged = SolveStats(
+        iterations=np.concatenate([s.iterations for s in stats_list]),
+        restarts=np.concatenate([s.restarts for s in stats_list]),
+        kkt=np.concatenate([s.kkt for s in stats_list]),
+        converged=np.concatenate([s.converged for s in stats_list]),
+        tol=stats_list[0].tol, state=stats_list[0].state,
+    )
+    return {
+        **merged.summary(),
+        "iters": [int(i) for i in merged.iterations],
+        "restarts": [int(r) for r in merged.restarts],
+        "kkt": [float(k) for k in merged.kkt],
+    }
+
+
 def solve_lp_pdhg(problem: Problem, iters: int = 2000,
                   step_scale: float = 0.9, operator: str = "auto",
-                  tol: float | None = None, init: PDHGState | None = None,
+                  tol: float | None = None, adaptive: bool = True,
+                  restart: bool = True, check_every: int | None = None,
+                  init: PDHGState | None = None, scaling: str = "ruiz",
+                  precision: str = "mixed", omega: bool = True,
                   device=None) -> PDHGResult:
-    """Single-instance legacy PDHG solve: the B=1 case of
-    ``solve_lp_many``, on ``device`` (None = the CUDA card)."""
-    from .batch import solve_lp_many
+    """Single-instance PDHG solve: the B=1 case of ``solve_lp_many``, on
+    ``device`` (None = the CUDA card).  ``tol=None`` runs the legacy
+    fixed-``iters`` loop; with ``tol`` set the solve stops once the
+    normalized duality gap is below ``tol`` (see ``solve_lp_many`` for
+    ``adaptive``, ``restart``, ``check_every`` and the speed knobs
+    ``scaling``/``precision``/``omega``, which legacy mode ignores)."""
+    from .batch import DEFAULT_CHECK_EVERY, solve_lp_many
 
     return solve_lp_many([problem], iters=iters, step_scale=step_scale,
-                         operator=operator, tol=tol, init=init,
-                         device=device)[0]
+                         operator=operator, tol=tol, adaptive=adaptive,
+                         restart=restart,
+                         check_every=(DEFAULT_CHECK_EVERY
+                                      if check_every is None
+                                      else check_every),
+                         init=init, scaling=scaling, precision=precision,
+                         omega=omega, device=device)[0]

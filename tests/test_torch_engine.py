@@ -137,17 +137,15 @@ def test_synthetic_generator_is_identical():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        SolverConfig(tol=5e-3)
+    assert SolverConfig(tol=5e-3).tol == 5e-3
     assert PlacementConfig(engine="compiled").engine == "compiled"
-    for kw in ({"warm_start": 2}, {"pipeline": True}, {"devices": 1}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            SweepConfig(**kw)
+    assert SweepConfig(warm_start=2, pipeline=True, devices=1).devices == 1
+    with pytest.raises(NotImplementedError,
+                       match="multi-card pipeline sharding"):
+        SweepConfig(warm_start=2, pipeline=True, devices=2)
     eng = FleetEngine(device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         eng.solve_scenarios(_small_fleet())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        evaluate(_small_fleet()[0], lp_tol=1e-3, device="cpu")
     assert ALGORITHMS == ("penalty-map", "penalty-map-f", "lp-map",
                           "lp-map-f")
 

@@ -35,7 +35,8 @@ def test_package_has_the_slice_modules():
                  "kernels/congestion.py", "kernels/fit.py",
                  "kernels/ops.py", "kernels/ref.py", "kernels/build.py",
                  "workload/synthetic.py", "core/place_step.py",
-                 "kernels/place_step.py"):
+                 "kernels/place_step.py", "core/rounding.py",
+                 "core/lowerbound.py"):
         assert name in rel, name
     for src in ("congestion.cu", "fit.cu", "place_step.cu"):
         assert (PKG / "kernels" / "csrc" / src).is_file(), src

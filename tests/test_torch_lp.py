@@ -136,8 +136,3 @@ def test_dispatch_count_is_one_per_solve(tgrid):
     before = tbatch.dispatch_count()
     tbatch.solve_lp_many(tgrid[:2], iters=5, device="cpu")
     assert tbatch.dispatch_count() == before + 1
-
-
-def test_tolerance_mode_is_not_ported(tgrid):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tbatch.solve_lp_many(tgrid[:1], tol=5e-3, device="cpu")
