@@ -14,8 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    placement=PlacementConfig(backend="kernel")).evaluate`` over 16 Table-I
    instances (n=1000, m=10, D=5, T=24, seeds 0..15), all four algorithms,
    2000 PDHG iterations, with the kernel launch counts set to 0 just before
-   and read just after; then the same evaluate once more under
-   ``torch.profiler`` for the card's busy time and idle share;
+   and read just after; then the same evaluate once more, at 250 PDHG
+   iterations, under ``torch.profiler`` for the card's busy time and idle
+   share (whole evaluate, LP and placement);
 5. kernels on the main path's own inputs: every distinct shape the main path
    gave each kernel, held against the plain version, then timed: device
    time per call of the kernel, its plain version and one PyTorch library
@@ -90,6 +91,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal, objectives within that gap (bit-equality reported).  It prints each run's lp_s beside phase 4's
    legacy ``pallas`` LP, iterations and restarts cold and warm, and the tol
    LP's device busy time and idle share from a marker-checked profile.
+
+10. the constrained and GCT-like fleets, through the same kernels at new
+   shapes.  (a) The 16 Table-I instances, each with constraints drawn by
+   ``np.random.default_rng(1000 + s)`` over disjoint task sets (40 meetable
+   deadlines, 16 malleable tasks whose deadline makes the resolver pick a
+   width, 16 affinity groups of 3, 8 anti-affinity groups of 4, 24
+   exclusive tasks; a set lowering rejects is weakened: affinity dropped,
+   then widths), lowered to D = 14: the tol-mode compiled evaluate (counts
+   set to 0 just before and read just after), then ``rightsize(q, algo,
+   lp_result=..., backend="kernel")`` for the four algorithms on every
+   instance (12 ``two_phase`` launches each), every plan clean under
+   ``check_plan`` and equal, ``assign`` and cost, to ``backend="numpy"``;
+   every protocol call of the lowered fleet by the numpy lockstep engine
+   and the compiled stepper bit-equal, and the lp-map calls through the fit
+   kernel (``backend="kernel"``) too; the last congestion apply and every
+   lp-map stepper dispatch replayed on the plain versions.  (b) 16 GCT-like
+   instances (``gct_like_instance(n=1000, m=10, seed=s)``, T' about 995,
+   D = 2) through the same evaluate: the protocol's placements bit-equal to
+   the numpy lockstep engine's and its costs equal, the last apply (T' about
+   995) within rtol/atol 1e-5 of the plain version, the type-parallel and
+   the largest wave dispatch bit-equal to ``ref.sub_phase_ref`` with their
+   ``smem_rows`` and spilled lanes.  Both print iterations and convergence
+   per lane, lp_s and place_s, and the kernels' times and bounds at these
+   shapes; the kernels line carries each kernel's phase-10 launches.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -298,17 +323,35 @@ def busy_s(merged, lo=None, hi=None) -> float:
 
 
 SENTINELS = 20  # marker kernels around a timed window (see fn_events)
-PROFILE_TRIES = 3
+PAD_LAUNCHES, PAD_S = 200, 0.05  # filler before and after the markers
+PROFILE_TRIES = 5
+POOL_BYTES = 24e9  # pool copies time_dispatch holds at once
+
+
+def pad(torch):
+    """Filler work on the card, at least PAD_LAUNCHES small kernels over at
+    least PAD_S seconds, with a host wait every 20 launches."""
+    buf = torch.empty(1, device="cuda")
+    t0, k = time.perf_counter(), 0
+    while k < PAD_LAUNCHES or time.perf_counter() - t0 < PAD_S:
+        buf.fill_(k)
+        k += 1
+        if k % 20 == 0:
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+    torch.cuda.synchronize()
 
 
 def fn_events(torch, fn, reps: int, warmup: int) -> list[tuple[str, float]]:
     """(name, device seconds) of every kernel and copy that ``reps`` calls
     of ``fn`` put on the card, from a CUDA-activity profile.  The calls sit
-    between two runs of marker kernels (``torch.cuda._sleep``).  A profile
-    that lost a window's first or last events (seen after long traces)
-    loses markers instead; one that kept no marker on either side of the
-    calls (some record no event at all) is discarded and taken again, up
-    to ``PROFILE_TRIES`` times, and then raises rather than under-count."""
+    between two runs of marker kernels (``torch.cuda._sleep``), and those
+    between filler work (``pad``): after long traces a profile can lose
+    its first or last events (up to some ms of them), which the filler
+    absorbs.  A profile that lost into the window loses markers on that
+    side; one that kept no marker on either side of the calls (some record
+    no event at all) is discarded and taken again, up to
+    ``PROFILE_TRIES`` times, and then raises rather than under-count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -317,6 +360,7 @@ def fn_events(torch, fn, reps: int, warmup: int) -> list[tuple[str, float]]:
     torch.cuda.synchronize()
     for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad(torch)
             for _ in range(SENTINELS):
                 torch.cuda._sleep(100)
             torch.cuda.synchronize()
@@ -326,19 +370,19 @@ def fn_events(torch, fn, reps: int, warmup: int) -> list[tuple[str, float]]:
             for _ in range(SENTINELS):
                 torch.cuda._sleep(100)
             torch.cuda.synchronize()
+            pad(torch)
         evs = sorted((ev.start_ns(), ev.name(), ev.duration_ns() / 1e9)
                      for ev in prof.profiler.kineto_results.events()
                      if ev.device_type() == DeviceType.CUDA)
         marks = [i for i, (_, name, _) in enumerate(evs)
                  if "spin_kernel" in name]
         gaps = [i for a, i in zip(marks, marks[1:]) if i != a + 1]
-        if marks and len(gaps) == 1 and marks[0] == 0 \
-                and marks[-1] == len(evs) - 1:
+        if len(gaps) == 1:
             lo = marks[marks.index(gaps[0]) - 1] + 1
             return [(name, dur) for _, name, dur in evs[lo:gaps[0]]]
         log(f"profile {attempt + 1} of {reps} timed calls lost its markers "
-            f"({len(marks)} of {2 * SENTINELS} kept, {len(evs)} events); "
-            f"discarded")
+            f"({len(marks)} of {2 * SENTINELS} kept, at events "
+            f"{marks[:1]}..{marks[-1:]} of {len(evs)}); discarded")
     raise RuntimeError(
         f"{PROFILE_TRIES} profiles of {reps} timed calls lost their markers")
 
@@ -382,6 +426,14 @@ def bound(nbytes: float, flops: float,
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def span_sum_ops(groups: int, n: int, T: int, cols: int,
+                 scaled: bool = False) -> float:
+    """Operations a span sum needs: one add at each task's start and one at
+    its end per column (a difference array), a prefix over the T slots, and
+    with ``scaled`` the x * w product per task and column."""
+    return float(groups) * cols * ((3 if scaled else 2) * n + T)
 
 
 def timing_line(name, info) -> str:
@@ -466,6 +518,35 @@ def objective_slack(a, b, tol=TOL) -> float:
     within tol * (1 + |primal| + |dual|) of the optimum."""
     return tol * (2.0 + a.objective + a.lower_bound
                   + b.objective + b.lower_bound)
+
+
+def apply_timing(torch, ref, cong, args) -> dict:
+    """A recorded ``congestion_lp`` apply held against the plain version,
+    then timed: kernel, plain version, ``torch.bmm`` of a prebuilt mask on a
+    prebuilt x * w, and the byte/operation bound."""
+    start, end, w_all, x, Tp = args
+    B, n, m, D = w_all.shape
+    C = m * D
+    err = check_congestion_lp(torch, ref, cong, start, end, w_all, x, Tp,
+                              f"B={B} n={n} m={m} D={D} T'={Tp}")
+    mask = span_mask_btn(torch, start, end, Tp)
+    xw = (w_all * x[..., None]).reshape(B, n, C)
+    b_ms, b_by = bound(B * n * 8 + B * n * m * 4 + B * n * C * 4
+                       + B * Tp * C * 4,
+                       span_sum_ops(B, n, Tp, C, scaled=True))
+    return {
+        "shape": {"B": B, "n": n, "m": m, "D": D, "T": Tp},
+        "plan": cong.launch_plan(B, n, m, D, Tp), "max_abs_err": err,
+        "ms": device_ms(torch, lambda: cong.congestion_lp(start, end, w_all,
+                                                          x, Tp)),
+        # the plain version puts about 11 kernels on the card per call; 20
+        # calls keep its profile short (long profiles lose their markers)
+        "plain_ms": device_ms(torch, lambda: ref.congestion_lp_ref(
+            start, end, w_all, x, Tp), reps=20, warmup=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(torch, lambda: torch.bmm(mask, xw)),
+        "call_ms": cuda_ms(torch, lambda: cong.congestion_lp(
+            start, end, w_all, x, Tp))}
 
 
 # --- phases ------------------------------------------------------------------
@@ -615,6 +696,82 @@ def stepper_work(args, kwargs, out) -> tuple[float, float]:
     return nbytes, ops
 
 
+def replay_dispatches(torch, ref, kstep, logged, labels) -> tuple[float, int]:
+    """Replay recorded stepper dispatches (``Recorder(..., every=True)``'s
+    log) on the kernel and on its plain version (``ref.sub_phase_ref``),
+    each on its own copy of the inputs: node choices, counts, infeasibility
+    steps and the pool after the sub-phase must be bit-equal.  Returns (max
+    |pool err|, entries of [w|bad|j_rec] that differ), both 0 or it
+    raises."""
+    pool_err, mismatches = 0.0, 0
+    for (args, kw), label in zip(logged, labels):
+        got_args = [a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        want_args = [a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args]
+        got = kstep.sub_phase(*got_args, **kw)
+        want = ref.sub_phase_ref(*want_args, kw["purchase"],
+                                 kw["similarity"])
+        torch.cuda.synchronize()
+        p_got, p_want = got_args[0], want_args[0]
+        diff = torch.where(p_got == p_want, 0.0, (p_got - p_want).abs())
+        err = float(diff.max())
+        bad_out = int((got != want).sum())
+        pool_err, mismatches = max(pool_err, err), mismatches + bad_out
+        if bad_out or not torch.equal(p_got, p_want):
+            raise AssertionError(
+                f"stepper {label} at pool {tuple(args[0].shape)}, "
+                f"L={args[3].shape[0]}: kernel differs from plain version "
+                f"(max |pool err| {err}, {bad_out} of [w|bad|j_rec] differ)")
+    return pool_err, mismatches
+
+
+def time_dispatch(torch, ref, kstep, args, kw) -> dict:
+    """One recorded stepper dispatch timed: device ms per launch (profiled),
+    the plain version's ms and the wrapper call's ms (CUDA events), its
+    bound (``stepper_work``), and the pool rows each CTA kept in shared
+    memory (``smem_rows``) beside the lanes whose rows outgrew them.  Every
+    timed call gets a fresh copy of the pool, made before the timing; at
+    most ``POOL_BYTES`` of copies at once, so a large pool is timed over
+    fewer calls (at least 2)."""
+    size = args[0].numel() * args[0].element_size()
+    reps = max(2, min(20, int(POOL_BYTES // (size * (PROFILE_TRIES + 1)))))
+    warm = min(4, reps)
+    # a fresh pool per call, enough for every profile fn_events takes
+    pools = [args[0].clone() for _ in range(warm + reps * PROFILE_TRIES)]
+    it = iter(pools)
+    ms = device_ms(torch, lambda: kstep.sub_phase(next(it), *args[1:], **kw),
+                   reps=reps, warmup=warm)
+    del pools, it
+    # the plain version launches some 10^4 kernels per dispatch; a profile
+    # of a few dispatches drops events (fn_events' markers show it), so it
+    # is timed by CUDA events instead, idle gaps included
+    pools_r = [args[0].clone() for _ in range(4)]
+    it_r = iter(pools_r)
+    plain = cuda_ms(torch, lambda: ref.sub_phase_ref(
+        next(it_r), *args[1:], kw["purchase"], kw["similarity"]),
+        reps=3, warmup=1)
+    del pools_r, it_r
+    # the wrapper call on the card's own clock, beside the profile
+    pools_c = [args[0].clone() for _ in range(warm + reps)]
+    it_c = iter(pools_c)
+    call = cuda_ms(torch, lambda: kstep.sub_phase(next(it_c), *args[1:],
+                                                  **kw),
+                   reps=reps, warmup=warm)
+    del pools_c, it_c
+    tel: dict = {}
+    out = kstep.sub_phase(args[0].clone(), *args[1:], **dict(kw, telemetry=tel))
+    b_ms, b_by = bound(*stepper_work(args, kw, out), PEAK_F64_FLOPS)
+    pool = args[0]
+    A = pool.shape[0]
+    spilled = int((out[:A] > tel["smem_rows"]).sum())
+    return {"shape": {"A": A, "n_cap": pool.shape[1], "K": pool.shape[2],
+                      "L": args[3].shape[0], "D": args[3].shape[2]},
+            "timed_calls": reps, "ms": ms, "plain_ms": plain, "call_ms": call,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "smem_rows": tel["smem_rows"], "spilled_lanes": spilled}
+
+
 def compiled_phase(torch, np, ref, kernels, fleet, spec, res_np, tm, tn,
                    report) -> dict:
     """Phase 8: the compiled placement stepper on the fleet (see the module
@@ -721,62 +878,13 @@ def compiled_phase(torch, np, ref, kernels, fleet, spec, res_np, tm, tn,
                            placement="compiled", telemetry=tel)
                 modes += [(tel["mode"], fit)] * tel["dispatches"]
     t0 = time.perf_counter()
-    pool_err, mismatches = 0.0, 0
-    for (args, kw), (mode, fit) in zip(rec.log, modes):
-        got_args = [a.clone() if isinstance(a, torch.Tensor) else a
-                    for a in args]
-        want_args = [a.clone() if isinstance(a, torch.Tensor) else a
-                     for a in args]
-        got = kstep.sub_phase(*got_args, **kw)
-        want = ref.sub_phase_ref(*want_args, kw["purchase"],
-                                 kw["similarity"])
-        torch.cuda.synchronize()
-        p_got, p_want = got_args[0], want_args[0]
-        diff = torch.where(p_got == p_want, 0.0, (p_got - p_want).abs())
-        err = float(diff.max())
-        bad_out = int((got != want).sum())
-        pool_err, mismatches = max(pool_err, err), mismatches + bad_out
-        if bad_out or not torch.equal(p_got, p_want):
-            raise AssertionError(
-                f"stepper {mode} {fit} at pool {tuple(args[0].shape)}, "
-                f"L={args[3].shape[0]}: kernel differs from plain version "
-                f"(max |pool err| {err}, {bad_out} of [w|bad|j_rec] differ)")
+    pool_err, mismatches = replay_dispatches(
+        torch, ref, kstep, rec.log, [f"{mode} {fit}" for mode, fit in modes])
     check_s = time.perf_counter() - t0
     log(f"compiled: {len(rec.log)} lp-map dispatches of all {len(fleet)} "
         f"instances replayed, kernel bit-equal to the plain version: max "
         f"|pool err| {pool_err}, {mismatches} of [w|bad|j_rec] differ "
         f"({check_s:.1f} s)")
-
-    def timed(idx):
-        args, kw = rec.log[idx]
-        # a fresh pool per call, enough for every profile fn_events takes
-        pools = [args[0].clone() for _ in range(4 + 20 * PROFILE_TRIES)]
-        it = iter(pools)
-        ms = device_ms(torch, lambda: kstep.sub_phase(next(it), *args[1:],
-                                                      **kw),
-                       reps=20, warmup=4)
-        # the plain version launches some 10^4 kernels per dispatch; a
-        # profile of a few dispatches drops events (fn_events' markers show
-        # it), so it is timed by CUDA events instead, idle gaps included
-        pools_r = [args[0].clone() for _ in range(4)]
-        it_r = iter(pools_r)
-        plain = cuda_ms(torch, lambda: ref.sub_phase_ref(
-            next(it_r), *args[1:], kw["purchase"], kw["similarity"]),
-            reps=3, warmup=1)
-        # the wrapper call on the card's own clock, beside the profile
-        pools_c = [args[0].clone() for _ in range(24)]
-        it_c = iter(pools_c)
-        call = cuda_ms(torch, lambda: kstep.sub_phase(next(it_c), *args[1:],
-                                                      **kw),
-                       reps=20, warmup=4)
-        out = kstep.sub_phase(args[0].clone(), *args[1:], **kw)
-        b_ms, b_by = bound(*stepper_work(args, kw, out), PEAK_F64_FLOPS)
-        pool = args[0]
-        return {"shape": {"A": pool.shape[0], "n_cap": pool.shape[1],
-                          "K": pool.shape[2], "L": args[3].shape[0],
-                          "D": args[3].shape[2]},
-                "ms": ms, "plain_ms": plain, "call_ms": call,
-                "bound_ms": b_ms, "bound_by": b_by}
 
     # the type-parallel similarity dispatch and the largest wave dispatch
     tp = next(i for i, m in enumerate(modes)
@@ -784,7 +892,9 @@ def compiled_phase(torch, np, ref, kernels, fleet, spec, res_np, tm, tn,
     wave = max((i for i, m in enumerate(modes) if m[0] != "type-parallel"),
                key=lambda i: rec.log[i][0][0].shape[0]
                * rec.log[i][0][3].shape[0])
-    per_mode = {"type-parallel": timed(tp), "wave-sequential": timed(wave)}
+    per_mode = {"type-parallel": time_dispatch(torch, ref, kstep, *rec.log[tp]),
+                "wave-sequential": time_dispatch(torch, ref, kstep,
+                                                 *rec.log[wave])}
     for mode, info in per_mode.items():
         log(f"timing: place_step {mode} at {info['shape']}: ms per launch: "
             f"kernel {info['ms']:.6f} (device; {info['call_ms']:.6f} per "
@@ -860,6 +970,45 @@ def compare_tol_runs(np, a_res, b_res, exact=False) -> dict:
     return out
 
 
+def tol_evaluate(torch, kernels, cong, engine, problems):
+    """One evaluate with the launch counts set to 0 just before and read
+    just after; returns (result, wall s, launches, the last congestion_lp
+    apply's arguments)."""
+    with LastCall(cong, "congestion_lp") as last:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.evaluate(problems)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    return res, wall, launches, last.args
+
+
+def check_tol_launches(res, launches, what):
+    """A tol evaluate through the congestion kernel and the stepper: 13 +
+    the most iterations congestion launches per bucket, stepper launches,
+    nothing else."""
+    want = sum(13 + int(s.iterations.max()) for s in res.stats)
+    if launches["congestion_many"] != want:
+        raise AssertionError(
+            f"{what}: congestion launches {launches['congestion_many']} != "
+            f"13 + max iterations per bucket = {want}")
+    if launches["place_step"] <= 0 or any(
+            launches[k] for k in ("fit_scores_many", "fit_scores",
+                                  "two_phase")):
+        raise AssertionError(f"{what}: the evaluate launched {launches}")
+
+
+def lane_report(np, res) -> dict:
+    """Iterations and convergence per lane, in submission order."""
+    return {"iterations": [int(r.iters) for r in res.lp_results],
+            "converged": [bool(r.converged) for r in res.lp_results],
+            "not_converged": [i for i, r in enumerate(res.lp_results)
+                              if not r.converged],
+            **iter_summary(np, res.stats)}
+
+
 def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
               report) -> dict:
     """Phase 9: tolerance mode (see the module docstring).  Returns the tol
@@ -885,23 +1034,14 @@ def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
 
     # 9.1 the tol evaluate through the congestion kernel and the stepper
     engine = FleetEngine(solver=solver, placement=place)
-    with LastCall(cong, "congestion_lp") as last:
-        kernels.reset_launch_counts()
-        res, wall = timed_evaluate(engine, fleet)
-        launches = kernels.launch_counts()
+    res, wall, launches, last = tol_evaluate(torch, kernels, cong, engine,
+                                             fleet)
     cold = iter_summary(np, res.stats)
     want = sum(13 + int(s.iterations.max()) for s in res.stats)
     log(f"tol: wall {wall:.3f} s; LP {res.timings['lp_s']:.3f} s, placement "
         f"{res.timings['place_s']:.3f} s; launches {launches}; iterations "
         f"{cold}")
-    if launches["congestion_many"] != want:
-        raise AssertionError(
-            f"tol congestion launches {launches['congestion_many']} != 13 + "
-            f"max iterations per bucket = {want}")
-    if launches["place_step"] <= 0 or any(
-            launches[k] for k in ("fit_scores_many", "fit_scores",
-                                  "two_phase")):
-        raise AssertionError(f"the tol evaluate launched {launches}")
+    check_tol_launches(res, launches, "tol")
     for i, r in enumerate(res.lp_results):
         legacy = res_np.lp_results[i]
         if not (r.converged and r.kkt <= tol32):
@@ -917,7 +1057,7 @@ def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
         f"and legacy certified bounds cross-hold (rel {BOUND_RTOL})")
 
     # the last tol-mode apply, replayed on the plain version
-    start, end, w_all, x, Tp = last.args
+    start, end, w_all, x, Tp = last
     batch = res.plan.buckets[0].batch
     w_plain = torch.as_tensor(batch.weights(), dtype=torch.float32,
                               device=w_all.device)
@@ -1020,6 +1160,345 @@ def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
                      "idle_share_of_unprofiled_lp": idle_unprof},
         "phase_s": phase_s}
     return {"launches": launches, "max_abs_err": e_tol}
+
+
+# --- phase 10: the constrained and GCT-like fleets -----------------------------
+
+def constrained_fleet(np, fleet) -> tuple[list, list, list]:
+    """Phase 10a's fleet: each Table-I instance of ``fleet`` (seed s) with
+    constraints drawn by ``np.random.default_rng(1000 + s)`` over disjoint
+    task sets: 40 meetable deadlines (at or after the natural finish), 16
+    malleable tasks (max_width in {2, 3, 4}, serial_frac U[0, 0.6], a
+    deadline between the fastest and the natural finish), 16 affinity
+    groups of 3, 8 anti-affinity groups of 4 and 24 exclusive tasks.  A set
+    that lowering rejects is weakened as the reference's tests do (drop
+    affinity, then widths).  Returns (problems, lowerings, [(instance,
+    weakening step)])."""
+    import dataclasses
+
+    from repro_torch.core import (TaskConstraints, lower_constraints,
+                                  width_duration)
+
+    problems, lows, weakened = [], [], []
+    for s, p in enumerate(fleet):
+        rng = np.random.default_rng(1000 + s)
+        pool = list(rng.permutation(p.n))
+
+        def pop(k):
+            return [int(pool.pop()) for _ in range(k)]
+
+        deadlines = {u: int(rng.integers(int(p.end[u]), p.T))
+                     for u in pop(40)}
+        widths = {}
+        for u in pop(16):
+            w, f = int(rng.integers(2, 5)), float(rng.uniform(0.0, 0.6))
+            widths[u] = (w, f)
+            dur0 = int(p.end[u] - p.start[u] + 1)
+            fastest = int(p.start[u]) + int(width_duration(dur0, w, f)) - 1
+            deadlines[u] = int(rng.integers(fastest, int(p.end[u]) + 1))
+        affinity = {f"aff{g}": pop(3) for g in range(16)}
+        anti = {f"anti{g}": pop(4) for g in range(8)}
+        exclusive = pop(24)
+        sets = [
+            dict(deadlines=deadlines, affinity=affinity, anti_affinity=anti,
+                 exclusive=exclusive, widths=widths),
+            dict(deadlines=deadlines, anti_affinity=anti,
+                 exclusive=exclusive, widths=widths),
+            dict(deadlines={u: d for u, d in deadlines.items()
+                            if u not in widths},
+                 anti_affinity=anti, exclusive=exclusive),
+        ]
+        for step, kw in enumerate(sets):
+            q = dataclasses.replace(
+                p, constraints=TaskConstraints.from_groups(p.n, **kw))
+            try:
+                low = lower_constraints(q)
+            except ValueError as exc:
+                log(f"constrained: instance {s}, set {step} rejected: {exc}")
+                continue
+            break
+        else:
+            raise AssertionError(f"instance {s}: no constraint set lowers")
+        if step:
+            weakened.append((s, step))
+        problems.append(q)
+        lows.append(low)
+    return problems, lows, weakened
+
+
+def protocol_against_numpy(torch, np, kernels, kstep, res, what,
+                           kernel_lp=False, record=None) -> dict:
+    """Every ``place_many`` call of the protocol, bucket by bucket, on the
+    evaluate's own LP results: by the numpy lockstep engine and by the
+    compiled stepper, every ``assign`` and purchase bit-equal, and each
+    instance's best cost per algorithm equal to the evaluate's entry.  The
+    compiled dispatches of the lp-map calls are recorded, or, with
+    ``record``, those of its (algo, fit) calls only.  With ``kernel_lp`` the
+    lp-map calls run once more through the fit kernel
+    (``backend="kernel"``), counts set to 0 just before and read just
+    after, placements bit-equal to numpy's."""
+    from repro_torch.core import FIT_POLICIES, place_many
+
+    out = {"numpy_s": 0.0, "compiled_s": 0.0, "kernel_s": 0.0, "calls": 0,
+           "dispatches": [], "labels": [], "modes": [],
+           "kernel_launches": None}
+    best = [{} for _ in res.entries]
+    kernel_calls = []
+    for bucket in res.plan.buckets:
+        batch = bucket.batch
+        lp = [res.lp_results[i] for i in bucket.indices]
+        for algo, fit, filling, maps in protocol_calls(batch, lp,
+                                                       FIT_POLICIES):
+            t0 = time.perf_counter()
+            sols_n = place_many(batch, maps, fit=fit, filling=filling)
+            out["numpy_s"] += time.perf_counter() - t0
+            tel: dict = {}
+            rec = Recorder(torch, kstep, "sub_phase", every=True)
+            lp_call = algo.startswith("lp-map")
+            keep = lp_call if record is None else (algo, fit) in record
+            t0 = time.perf_counter()
+            if keep:
+                with rec:
+                    sols_c = place_many(batch, maps, fit=fit, filling=filling,
+                                        placement="compiled", telemetry=tel)
+            else:
+                sols_c = place_many(batch, maps, fit=fit, filling=filling,
+                                    placement="compiled", telemetry=tel)
+            torch.cuda.synchronize()
+            out["compiled_s"] += time.perf_counter() - t0
+            out["calls"] += 1
+            if keep:
+                out["dispatches"] += rec.log
+                out["labels"] += [f"{algo} {fit} {tel['mode']}"] * len(rec.log)
+                out["modes"] += [tel["mode"]] * len(rec.log)
+            if lp_call and kernel_lp:
+                kernel_calls.append((batch, maps, fit, filling, sols_n))
+            for k, (i, a, b) in enumerate(zip(bucket.indices, sols_c,
+                                              sols_n)):
+                if not (np.array_equal(a.assign, b.assign)
+                        and np.array_equal(a.node_type, b.node_type)):
+                    raise AssertionError(
+                        f"{what}: {algo} {fit} instance {i}: compiled "
+                        f"placement differs from the numpy lockstep engine's")
+                c = b.cost(batch.problems[k])
+                best[i][algo] = min(best[i].get(algo, np.inf), c)
+    for i, (entry, want) in enumerate(zip(res.entries, best)):
+        if entry["costs"] != want:
+            raise AssertionError(
+                f"{what}: instance {i}: evaluate costs {entry['costs']} vs "
+                f"numpy lockstep {want}")
+    if kernel_lp:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for batch, maps, fit, filling, sols_n in kernel_calls:
+            sols_k = place_many(batch, maps, fit=fit, filling=filling,
+                                backend="kernel")
+            for i, (a, b) in enumerate(zip(sols_k, sols_n)):
+                if not (np.array_equal(a.assign, b.assign)
+                        and np.array_equal(a.node_type, b.node_type)):
+                    raise AssertionError(
+                        f"{what}: lp-map {fit} filling={filling} instance "
+                        f"{i}: fit-kernel placement differs from numpy's")
+        torch.cuda.synchronize()
+        out["kernel_s"] = time.perf_counter() - t0
+        out["kernel_launches"] = kernels.launch_counts()
+        if out["kernel_launches"]["fit_scores_many"] <= 0:
+            raise AssertionError(f"{what}: the fit kernel never launched")
+    return out
+
+
+def constrained_phase(torch, np, ref, kernels, cong, fleet, report) -> dict:
+    """Phase 10a: the constrained Table-I fleet (see the module docstring).
+    Returns its launches per kernel and its timings at the lowered shape."""
+    from repro_torch.core import (ALGORITHMS, FleetEngine, PlacementConfig,
+                                  SolverConfig, check_plan, rightsize)
+    from repro_torch.kernels import place_step as kstep
+
+    t_phase = time.perf_counter()
+    problems, lows, weakened = constrained_fleet(np, fleet)
+    dims = sorted({low.lowered.D for low in lows})
+    rows = [low.lowered.n for low in lows]
+    log(f"constrained: {len(problems)} instances, {len(weakened)} constraint "
+        f"sets weakened {weakened}; lowered D {dims}, rows {min(rows)}.."
+        f"{max(rows)}")
+    engine = FleetEngine(solver=SolverConfig(tol=TOL, iters=4000,
+                                             operator="pallas"),
+                         placement=PlacementConfig(engine="compiled"))
+    res, wall, launches, last = tol_evaluate(torch, kernels, cong, engine,
+                                             problems)
+    lanes = lane_report(np, res)
+    tm = res.timings
+    log(f"constrained: wall {wall:.3f} s; LP {tm['lp_s']:.3f} s, placement "
+        f"{tm['place_s']:.3f} s; {res.plan.n_buckets} buckets; launches "
+        f"{launches}; lanes {lanes}")
+    check_tol_launches(res, launches, "constrained")
+    if last[2].shape[-1] not in dims:
+        raise AssertionError(f"the last apply's D {last[2].shape[-1]} is not "
+                             f"a lowered D {dims}")
+
+    # rightsize, four algorithms per instance on the fleet's LP results:
+    # the two_phase kernel, then numpy; the oracle on every kernel plan
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sols_k = [[rightsize(q, algo, backend="kernel", check=False,
+                         lp_result=r) for algo in ALGORITHMS]
+              for q, r in zip(problems, res.lp_results)]
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t0
+    launches_r = kernels.launch_counts()
+    t0 = time.perf_counter()
+    sols_n = [[rightsize(q, algo, check=False, lp_result=r)
+               for algo in ALGORITHMS]
+              for q, r in zip(problems, res.lp_results)]
+    numpy_s = time.perf_counter() - t0
+    calls = len(problems) * (4 + 4 + 2 + 2)
+    if launches_r["two_phase"] != calls or any(
+            v for k, v in launches_r.items() if k != "two_phase"):
+        raise AssertionError(f"constrained rightsize launched {launches_r}, "
+                             f"want {calls} two_phase launches only")
+    t0 = time.perf_counter()
+    violations, plans = [], 0
+    for i, (q, ks, ns) in enumerate(zip(problems, sols_k, sols_n)):
+        for algo, a, b in zip(ALGORITHMS, ks, ns):
+            if not (np.array_equal(a.assign, b.assign)
+                    and np.array_equal(a.node_type, b.node_type)
+                    and a.cost(q) == b.cost(q)):
+                raise AssertionError(
+                    f"constrained instance {i} {algo}: kernel route "
+                    f"{a.cost(q)} vs numpy {b.cost(q)}")
+            violations += [f"instance {i} {algo}: {v}"
+                           for v in check_plan(q, a)]
+            plans += 1
+    check_s = time.perf_counter() - t0
+    log(f"constrained: rightsize x {len(ALGORITHMS)} algorithms on "
+        f"{len(problems)} instances: {launches_r['two_phase']} two_phase "
+        f"launches, kernel route {kern_s:.3f} s, numpy route {numpy_s:.3f} "
+        f"s, assigns and costs equal; check_plan on {plans} plans: "
+        f"{len(violations)} violations ({check_s:.1f} s)")
+    if violations:
+        raise AssertionError("constrained: " + "; ".join(violations[:10]))
+
+    # the lowered fleet's protocol: numpy lockstep, compiled, fit kernel
+    prot = protocol_against_numpy(torch, np, kernels, kstep, res,
+                                  "constrained", kernel_lp=True)
+    log(f"constrained: {prot['calls']} protocol calls, compiled and numpy "
+        f"lockstep placements equal, best costs equal the evaluate's; numpy "
+        f"{prot['numpy_s']:.3f} s, compiled {prot['compiled_s']:.3f} s; the "
+        f"lp-map calls through the fit kernel equal too ({prot['kernel_s']:.3f}"
+        f" s, launches {prot['kernel_launches']})")
+
+    # replays at the lowered shape: the last apply, every lp-map dispatch
+    t0 = time.perf_counter()
+    apply = apply_timing(torch, ref, cong, last)
+    pool_err, mismatches = replay_dispatches(torch, ref, kstep,
+                                             prot["dispatches"],
+                                             prot["labels"])
+    log(f"constrained: the last apply at {apply['shape']} within rtol/atol "
+        f"{CONG_RTOL} of the plain version (max |err| "
+        f"{apply['max_abs_err']:.3g}); {len(prot['dispatches'])} lp-map "
+        f"dispatches replayed bit-equal (max |pool err| {pool_err}, "
+        f"{mismatches} differ) in {time.perf_counter() - t0:.1f} s")
+    tp = next(i for i, m in enumerate(prot["modes"]) if m == "type-parallel")
+    step = time_dispatch(torch, ref, kstep, *prot["dispatches"][tp])
+    log(timing_line("congestion_lp (constrained)", apply))
+    log(f"timing: congestion_lp (constrained) launch shape {apply['plan']}")
+    log(f"timing: place_step type-parallel (constrained) at {step['shape']}: "
+        f"kernel {step['ms']:.6f} ms (device; {step['call_ms']:.6f} per "
+        f"wrapper call), plain {step['plain_ms']:.6f} (CUDA events), bound "
+        f"{step['bound_ms']:.3e} ({step['bound_by']}); smem_rows "
+        f"{step['smem_rows']}, spilled lanes {step['spilled_lanes']}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"constrained: phase 10a took {phase_s:.1f} s")
+    runs = {k: launches[k] + launches_r[k] + prot["kernel_launches"][k]
+            for k in launches}
+    report["constrained"] = {
+        "weakened": weakened, "lowered_D": dims, "rows": rows, "wall_s": wall,
+        "timings": tm, "launches": launches, "lanes": lanes,
+        "entries": res.entries, "rightsize": {
+            "launches": launches_r, "kernel_s": kern_s, "numpy_s": numpy_s,
+            "plans": plans, "violations": len(violations)},
+        "protocol": {k: v for k, v in prot.items()
+                     if k not in ("dispatches", "labels", "modes")},
+        "replayed_dispatches": len(prot["dispatches"]),
+        "apply": apply, "place_step": step, "phase_s": phase_s}
+    return {"launches": runs, "apply": apply, "place_step": step,
+            "max_abs_err": apply["max_abs_err"], "pool_err": pool_err}
+
+
+def gct_phase(torch, np, ref, kernels, cong, report) -> dict:
+    """Phase 10b: the GCT-like fleet (see the module docstring).  Returns
+    its launches per kernel and its timings at T' of about 995."""
+    from repro_torch.core import FleetEngine, PlacementConfig, SolverConfig
+    from repro_torch.kernels import place_step as kstep
+    from repro_torch.workload import gct_like_instance
+
+    t_phase = time.perf_counter()
+    problems = [gct_like_instance(n=1000, m=10, seed=s) for s in range(FLEET)]
+    engine = FleetEngine(solver=SolverConfig(tol=TOL, iters=4000,
+                                             operator="pallas"),
+                         placement=PlacementConfig(engine="compiled"))
+    res, wall, launches, last = tol_evaluate(torch, kernels, cong, engine,
+                                             problems)
+    lanes = lane_report(np, res)
+    tm = res.timings
+    tps = [b.batch.Tp for b in res.plan.buckets]
+    log(f"gct: {FLEET} instances n=1000 m=10 D=2; {res.plan.n_buckets} "
+        f"buckets at T' {tps}; wall {wall:.3f} s; LP {tm['lp_s']:.3f} s, "
+        f"placement {tm['place_s']:.3f} s; launches {launches}; telemetry "
+        f"{tm['placement']}")
+    log(f"gct: lanes {lanes}")
+    check_tol_launches(res, launches, "gct")
+    for i, e in enumerate(res.entries):
+        if not (np.isfinite(e["lb"]) and e["lb"] > 0
+                and all(np.isfinite(list(e["costs"].values())))):
+            raise AssertionError(f"gct instance {i}: non-finite result {e}")
+
+    # the dispatches of the lp-map similarity calls are recorded: the
+    # type-parallel one (no filling) and the waves (filling)
+    prot = protocol_against_numpy(
+        torch, np, kernels, kstep, res, "gct",
+        record={("lp-map", "similarity"), ("lp-map-f", "similarity")})
+    log(f"gct: {prot['calls']} protocol calls, compiled and numpy lockstep "
+        f"placements equal, best costs equal the evaluate's; numpy "
+        f"{prot['numpy_s']:.3f} s, compiled {prot['compiled_s']:.3f} s")
+
+    apply = apply_timing(torch, ref, cong, last)
+    modes = prot["modes"]
+    tp = next(i for i, m in enumerate(modes) if m == "type-parallel")
+    wave = max((i for i, m in enumerate(modes) if m != "type-parallel"),
+               key=lambda i: prot["dispatches"][i][0][0].shape[0]
+               * prot["dispatches"][i][0][3].shape[0])
+    pool_err, mismatches = replay_dispatches(
+        torch, ref, kstep, [prot["dispatches"][i] for i in (tp, wave)],
+        [prot["labels"][i] for i in (tp, wave)])
+    steps = {"type-parallel": time_dispatch(torch, ref, kstep,
+                                            *prot["dispatches"][tp]),
+             "wave-sequential": time_dispatch(torch, ref, kstep,
+                                              *prot["dispatches"][wave])}
+    log(f"gct: the last apply at {apply['shape']} within rtol/atol "
+        f"{CONG_RTOL} of the plain version (max |err| "
+        f"{apply['max_abs_err']:.3g}); the type-parallel and the largest "
+        f"wave dispatch replayed bit-equal (max |pool err| {pool_err}, "
+        f"{mismatches} differ)")
+    log(timing_line("congestion_lp (gct)", apply))
+    log(f"timing: congestion_lp (gct) launch shape {apply['plan']}")
+    for mode, info in steps.items():
+        log(f"timing: place_step {mode} (gct) at {info['shape']}: kernel "
+            f"{info['ms']:.6f} ms (device; {info['call_ms']:.6f} per wrapper "
+            f"call), plain {info['plain_ms']:.6f} (CUDA events), bound "
+            f"{info['bound_ms']:.3e} ({info['bound_by']}); smem_rows "
+            f"{info['smem_rows']}, spilled lanes {info['spilled_lanes']}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"gct: phase 10b took {phase_s:.1f} s")
+    report["gct"] = {
+        "T": tps, "wall_s": wall, "timings": tm, "launches": launches,
+        "lanes": lanes, "entries": res.entries,
+        "protocol": {k: v for k, v in prot.items()
+                     if k not in ("dispatches", "labels", "modes")},
+        "apply": apply, "place_step": steps, "phase_s": phase_s}
+    return {"launches": launches, "apply": apply, "place_step": steps,
+            "max_abs_err": apply["max_abs_err"], "pool_err": pool_err}
 
 
 def walk_work(args, work) -> tuple[float, float]:
@@ -1385,24 +1864,10 @@ def main(argv=None) -> int:
     key_c, n_c = rec_c.calls.most_common(1)[0]
     start, end, w_all, x, Tp = rec_c.inputs[key_c]
     B, n, m, D = w_all.shape
-    C = m * D
-    mask = span_mask_btn(torch, start, end, Tp)
-    xw = (w_all * x[..., None]).reshape(B, n, C)
-    b_ms, b_by = bound(B * n * 8 + B * n * m * 4 + B * n * C * 4
-                       + B * Tp * C * 4, 2.0 * B * Tp * n * C + B * n * C)
-    kinfo["congestion_lp"] = {
-        "shape": {"B": B, "n": n, "m": m, "D": D, "T": Tp}, "calls": calls_c,
-        "plan": cong.launch_plan(B, n, m, D, Tp),
-        "max_abs_err": max(e_c, err["congestion_lp"]),
-        "ms": device_ms(torch, lambda: cong.congestion_lp(start, end, w_all,
-                                                          x, Tp)),
-        "plain_ms": device_ms(torch, lambda: ref.congestion_lp_ref(
-            start, end, w_all, x, Tp)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": device_ms(torch, lambda: torch.bmm(mask, xw)),
-        "call_ms": cuda_ms(torch, lambda: cong.congestion_lp(
-            start, end, w_all, x, Tp)),
-    }
+    info = apply_timing(torch, ref, cong, rec_c.inputs[key_c])
+    kinfo["congestion_lp"] = dict(
+        info, calls=calls_c,
+        max_abs_err=max(e_c, info["max_abs_err"], err["congestion_lp"]))
 
     # one forward apply of the LP operator on these inputs: pallas (one
     # launch), dense, and the three launches the pallas apply made before
@@ -1450,7 +1915,7 @@ def main(argv=None) -> int:
                            f"G={G}")
     mask_g = span_mask_btn(torch, start_g, end_g, Tp)
     b_ms, b_by = bound(G * n * (8 + 4 * K) + G * Tp * K * 4,
-                       2.0 * G * Tp * n * K)
+                       span_sum_ops(G, n, Tp, K))
     kinfo["congestion_many"] = {
         "shape": {"G": G, "n": n, "T": Tp, "K": K}, "calls": 0,
         "plan": cong.launch_plan(G, n, 1, K, Tp, lp=False),
@@ -1477,7 +1942,7 @@ def main(argv=None) -> int:
     mask1c = span_mask_btn(torch, s1c[None], e1c[None], T1c)
     n1c, K1c = w1c.shape
     b_ms, b_by = bound(n1c * (8 + 4 * K1c) + T1c * K1c * 4,
-                       2.0 * T1c * n1c * K1c)
+                       span_sum_ops(1, n1c, T1c, K1c))
     kinfo["congestion"] = {
         "shape": {"G": 1, "n": n1c, "T": T1c, "K": K1c}, "calls": 0,
         "plan": cong.launch_plan(1, n1c, 1, K1c, T1c, lp=False),
@@ -1591,6 +2056,27 @@ def main(argv=None) -> int:
     kinfo["congestion_lp"]["max_abs_err"] = max(
         kinfo["congestion_lp"]["max_abs_err"], tol["max_abs_err"])
 
+    # 10. the constrained Table-I fleet and the GCT-like fleet
+    con = constrained_phase(torch, np, ref, kernels, cong, fleet, report)
+    gct = gct_phase(torch, np, ref, kernels, cong, report)
+    counter = {"congestion_many": "congestion_many",
+               "congestion_lp": "congestion_many",
+               "fit_scores_many": "fit_scores_many",
+               "fit_scores": "fit_scores", "place_step": "place_step",
+               "two_phase": "two_phase"}
+    for name, key in counter.items():
+        kinfo[name]["phase10_launches"] = {
+            "constrained": con["launches"][key], "gct": gct["launches"][key]}
+    kinfo["congestion_lp"]["max_abs_err"] = max(
+        kinfo["congestion_lp"]["max_abs_err"], con["max_abs_err"],
+        gct["max_abs_err"])
+    kinfo["congestion_lp"]["phase10_ms"] = {
+        "constrained": con["apply"]["ms"], "gct": gct["apply"]["ms"]}
+    kinfo["place_step"]["phase10_ms"] = {
+        "constrained": con["place_step"]["ms"],
+        "gct type-parallel": gct["place_step"]["type-parallel"]["ms"],
+        "gct wave": gct["place_step"]["wave-sequential"]["ms"]}
+
     # the congestion kernel's one counter counts both of its entries; the
     # main path launches it only through congestion_lp
     runs = {"congestion_many": launches["congestion_many"],
@@ -1610,7 +2096,9 @@ def main(argv=None) -> int:
          # the serial chain's floor, where a kernel is one (two_phase), and
          # the tol-mode evaluate's launches (the congestion kernel)
          **{key: kinfo[name][key] for key in ("latency_bound_ms",
-                                              "tol_launches")
+                                              "tol_launches",
+                                              "phase10_launches",
+                                              "phase10_ms")
             if key in kinfo[name]}}
         for name in SOURCES]}
     report["kernels"] = kinfo

@@ -15,6 +15,9 @@ Public API of this slice:
     concentration_rounding              — congestion-aware LP rounding
     lp_lowerbound, congestion_lowerbound,
     no_timeline_lowerbound              — lower bounds on cost(opt)
+    TaskConstraints, lower_constraints,
+    expand_solution, Lowering           — hard constraints + lowering
+    check_plan, assert_feasible         — independent feasibility oracle
 """
 
 from .problem import (
@@ -25,7 +28,15 @@ from .problem import (
     feasible_types,
     require_lowered,
 )
-from .constraints import Lowering, lower_constraints, expand_solution
+from .constraints import (
+    DELTA,
+    TaskConstraints,
+    Lowering,
+    lower_constraints,
+    expand_solution,
+    width_duration,
+)
+from .checker import FeasibilityError, assert_feasible, check_plan
 from .solution import Solution, verify, EPS
 from .penalty import penalty_map, penalty_matrix, relative_demand, min_penalty
 from .placement import two_phase, TypePool, FIT_POLICIES
@@ -65,6 +76,7 @@ __all__ = [
     "SolveStats", "ProblemBatch", "pack_problems", "solve_lp_many",
     "solve_lp_sweep", "dispatch_count", "place_many",
     "Bucket", "FleetEngine", "FleetResult", "PackPlan", "PlacementConfig",
-    "SolverConfig", "SweepConfig", "plan_buckets", "Lowering",
-    "lower_constraints", "expand_solution",
+    "SolverConfig", "SweepConfig", "plan_buckets", "TaskConstraints",
+    "Lowering", "lower_constraints", "expand_solution", "width_duration",
+    "DELTA", "FeasibilityError", "assert_feasible", "check_plan",
 ]

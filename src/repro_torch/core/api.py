@@ -64,9 +64,14 @@ def rightsize(problem: Problem, algo: str = "lp-map-f",
     (and, for PenaltyMap, the best relative-demand kind) per the paper.
 
     ``lp_result`` supplies the LP mapping (a ``PDHGResult`` or
-    ``LPResult``); without it the LP algorithms solve the LP exactly with
-    HiGHS.  Instances with active constraints raise
-    ``NotImplementedError`` (ROADMAP Queue 1, item 8)."""
+    ``LPResult``, of the lowered instance); without it the LP algorithms
+    solve the LP exactly with HiGHS.
+
+    Constrained instances (``problem.constraints``) are lowered first
+    (``core.constraints``); the returned solution is expanded back to
+    original task rows, and under ``check=True`` it is also validated
+    against the ORIGINAL constraint semantics by the independent
+    ``core.checker`` oracle."""
     dev = resolve_device(device)
     low = lower_constraints(problem)
     trimmed, _ = trim_timeline(low.lowered)
@@ -92,7 +97,12 @@ def rightsize(problem: Problem, algo: str = "lp-map-f",
     best.meta["wall_s"] = time.perf_counter() - t0
     if check:
         verify(trimmed, best)
-    return expand_solution(low, best)
+    best = expand_solution(low, best)
+    if check and not low.identity:
+        from .checker import assert_feasible
+
+        assert_feasible(problem, best)
+    return best
 
 
 def _solve_lp_for(problem: Problem, lp_solver: str, lp_iters: int, device,
@@ -136,6 +146,11 @@ def evaluate(problem: Problem, algos=ALGORITHMS, backend: str = "numpy",
 
     Returns {'lb', 'costs': {algo: cost}, 'normalized': {algo: cost/lb},
     'wall_s': {algo: s}}.
+
+    Constrained instances are lowered first; costs (and the lower bound)
+    are those of the lowered instance, whose affinity rows reserve
+    peak-over-hull demand — a conservative relaxation, so the reported
+    ``lb`` may exceed the true constrained optimum's LP bound.
     """
     dev = resolve_device(device)
     low = lower_constraints(problem)

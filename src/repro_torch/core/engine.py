@@ -23,11 +23,13 @@ paper's §VI protocol over a fleet of instances on one device:
                           ``place(...)``, ``evaluate(...)`` ->
                           ``FleetResult``.
 
-Ported from ``repro.core.engine``.  What this port does not have yet raises
+Ported from ``repro.core.engine``.  Constrained instances are lowered
+(``core.constraints``) before packing, and ``place`` expands its solutions
+back to the original task rows.  What this port does not have yet raises
 ``NotImplementedError`` naming the ROADMAP entry that brings it: a sweep
 pipeline sharded over more than one card (``SweepConfig(devices>1)``,
-"multi-card pipeline sharding"), scenario groups (``solve_scenarios``,
-Queue 1 item 11), and instances with active constraints (item 8).
+"multi-card pipeline sharding") and scenario groups (``solve_scenarios``,
+Queue 1 item 11).
 
 ``device`` (None = the CUDA card) is where the LP solve runs, where the
 ``kernel`` backend scores placements and where the compiled stepper keeps
@@ -662,7 +664,9 @@ class FleetEngine:
     def pack(self, problems) -> PackPlan:
         """Trim, bucket (``plan_buckets``), and pad-and-stack a fleet.
 
-        A pre-packed ``ProblemBatch`` passes through as one bucket."""
+        A pre-packed ``ProblemBatch`` passes through as one bucket.
+        Constrained instances are lowered here before trimming, so every
+        downstream phase sees plain instances."""
         if isinstance(problems, ProblemBatch):
             bucket = Bucket(indices=tuple(range(problems.B)),
                             batch=problems)
@@ -806,8 +810,13 @@ class FleetEngine:
               filling: bool | None = None) -> list[Solution]:
         """One placement pass of given mappings under ``self.placement``
         (fit/filling overridable per call; fit defaults to the config's
-        policy, or 'first' under 'best').  ``mappings[b]`` is in trimmed
-        task order, which is the input's task order."""
+        policy, or 'first' under 'best').
+
+        Constrained instances are lowered first and the returned solutions
+        expanded back to original task rows (resolved widths ride
+        ``meta['widths']``); ``mappings[b]`` must therefore align with the
+        LOWERED rows, which is what :meth:`solve` produces for the same
+        problems."""
         if isinstance(problems, PackPlan):
             raise ValueError(
                 "place() takes a problem sequence or a ProblemBatch "

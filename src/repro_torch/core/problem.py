@@ -80,10 +80,11 @@ class Problem:
     end:   (n,)   0-based inclusive end slots, end >= start.
     node_types: the catalogue.
     T: number of timeslots (end < T).
-    constraints: optional task constraints (an object with ``n`` and
-        ``is_vacuous()``, such as ``repro.core.TaskConstraints``).  The
-        port solves only plain instances: vacuous constraints pass
-        through, active ones are rejected by ``lower_constraints``.
+    constraints: optional ``repro_torch.core.constraints.TaskConstraints``
+        (deadlines, affinity groups, exclusivity, malleable width).
+        The LP/placement stack consumes only *lowered* instances —
+        ``lower_constraints`` turns a constrained Problem into a plain
+        one; ``require_lowered`` guards the solver entry points.
     """
 
     dem: np.ndarray
@@ -157,20 +158,20 @@ def active_mask(problem: Problem, slots: Sequence[int] | None = None) -> np.ndar
 
 
 def require_lowered(problem: Problem, where: str) -> None:
-    """Reject instances carrying *active* constraints
-    (``NotImplementedError``: constraint lowering is not ported yet).
+    """Reject instances carrying *active* constraints (``ValueError``).
 
-    The LP and placement stack understands only plain instances; the
-    public entry points (``rightsize``, ``evaluate``, ``FleetEngine``)
-    pass every instance through ``lower_constraints`` first.  Vacuous
-    constraints are harmless and pass through.
+    The LP and placement stack understands only plain instances; a
+    constrained ``Problem`` must go through ``lower_constraints`` first
+    (the public entry points — ``rightsize``, ``evaluate``,
+    ``FleetEngine`` — all do).  Vacuous constraints are harmless and pass
+    through.
     """
     c = problem.constraints
     if c is not None and not c.is_vacuous():
-        raise NotImplementedError(
-            f"{where} received a Problem with active constraints; "
-            f"constraint lowering is not ported yet (ROADMAP Queue 1, "
-            f"item 8)"
+        raise ValueError(
+            f"{where} received a Problem with active constraints; lower "
+            f"it first with lower_constraints (the rightsize/evaluate/"
+            f"FleetEngine entry points do this automatically)"
         )
 
 
@@ -186,8 +187,9 @@ def trim_timeline(problem: Problem) -> tuple[Problem, np.ndarray]:
     rank of the old start (which is always a kept slot) and the new end is
     the rank of the last kept slot <= old end.
 
-    Active constraints are rejected (``require_lowered``); vacuous
-    constraints are silently dropped — the trimmed instance is plain.
+    Active constraints must be lowered before trimming (ValueError
+    otherwise); vacuous constraints are silently dropped — the trimmed
+    instance is plain either way.
     """
     require_lowered(problem, "trim_timeline")
     if problem.n == 0:

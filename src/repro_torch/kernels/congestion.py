@@ -15,7 +15,8 @@ For CUDA tensors each entry launches the hand-written kernel (built at
 first use) and adds one to ``congestion_many.launches``, the kernel's one
 launch counter; for CPU tensors it returns the plain version
 (``ref.congestion_many_ref``, ``ref.congestion_lp_ref``).  It never falls
-back: a CUDA build or launch that fails raises.
+back: a CUDA build or launch that fails raises, and a shape wider than
+``MAX_COLUMNS`` columns raises ``ValueError`` before any launch.
 """
 
 from __future__ import annotations
@@ -24,7 +25,20 @@ import torch
 
 from . import ref
 
-__all__ = ["congestion_many", "congestion", "congestion_lp"]
+__all__ = ["congestion_many", "congestion", "congestion_lp", "MAX_COLUMNS"]
+
+# columns (m * D for the LP's apply, K for the TPU contract) one launch takes:
+# a CTA holds every column of its time tile in kPartFloats partial sums.  It
+# must equal csrc/congestion.cu's kPartFloats, whose valid() refuses the same
+# shapes at launch time; here they fail before any launch, with the shape
+MAX_COLUMNS = 8192
+
+
+def _check_columns(cols: int, what: str):
+    if cols > MAX_COLUMNS:
+        raise ValueError(
+            f"the congestion kernel takes at most {MAX_COLUMNS} columns, got "
+            f"{what}")
 
 
 def _check_spans(start, end, lead, what):
@@ -74,6 +88,7 @@ def congestion_many(start: torch.Tensor, end: torch.Tensor, w: torch.Tensor,
     if not _on_card(start, end, w):
         return ref.congestion_many_ref(start, end, w, T)
     G, n, K = w.shape
+    _check_columns(K, f"K={K} for w {tuple(w.shape)}")
     out = torch.empty((G, T, K), dtype=torch.float32, device=w.device)
     if G == 0 or T == 0 or K == 0:
         return out.zero_()
@@ -106,6 +121,7 @@ def congestion_lp(start: torch.Tensor, end: torch.Tensor,
     if not _on_card(start, end, w_all, x):
         return ref.congestion_lp_ref(start, end, w_all, x, Tp)
     B, n, m, D = w_all.shape
+    _check_columns(m * D, f"m*D={m * D} for w_all {tuple(w_all.shape)}")
     out = torch.empty((B, Tp, m, D), dtype=torch.float32,
                       device=w_all.device)
     if B == 0 or Tp == 0 or m == 0 or D == 0:

@@ -9,6 +9,9 @@ LP bit-equal to the expression it had before the apply became one launch:
 a permute, the product ``w * x`` and ``congestion_many`` over B*m groups.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,3 +151,14 @@ def test_cpu_lp_applies_never_count_launches():
     start, end, w, x = _lp_inputs(1, 2, 10, 3, 2, 8)
     tcong.congestion_lp(_t(start), _t(end), _t(w), _t(x), 8)
     assert tcong.congestion_many.launches == before
+
+
+def test_column_limit_is_the_kernels_own():
+    src = (pathlib.Path(tcong.__file__).parent / "csrc" / "congestion.cu")
+    part = re.search(r"constexpr int kPartFloats = (\d+);", src.read_text())
+    assert int(part.group(1)) == tcong.MAX_COLUMNS
+    s = torch.zeros((1, 2), dtype=torch.int32)
+    w = torch.ones((1, 2, 1, tcong.MAX_COLUMNS + 1))
+    # CPU tensors take the plain version, which has no column limit
+    out = tcong.congestion_lp(s, s, w, torch.ones((1, 2, 1)), 3)
+    assert out.shape == (1, 3, 1, tcong.MAX_COLUMNS + 1)

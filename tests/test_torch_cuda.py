@@ -18,7 +18,11 @@ show, tol * (2 + both objectives + both bounds), certified bounds crossing,
 costs equal wherever the two canonical mappings are), and the pipelined
 sweep against the sequential chain (the same arithmetic: mappings and costs
 equal, objectives within that gap); the float64 cumsum forward bit-equal
-over repeated applies and within 1e-12 of the dense form on the CPU.
+over repeated applies and within 1e-12 of the dense form on the CPU; the
+constrained and GCT-like shapes (a lowered D of 14, T' about 995, pool rows
+of about 2000 doubles that spill) held as above, the shapes the kernels do
+not take refused with ``ValueError`` before any launch, and a constrained
+fleet's plans on the card equal to the CPU's and clean under the oracle.
 """
 
 import numpy as np
@@ -151,10 +155,12 @@ def test_congestion_lp_rejects_what_the_kernel_does_not_take(dev):
                            .transpose(1, 2), 4)
     with pytest.raises(ValueError, match="device"):
         cong.congestion_lp(s, s, w, x.cpu(), 4)
-    # wider than one CTA's partial sums can hold: the launch is refused
+    # wider than one CTA's partial sums can hold: refused before a launch
     wide = torch.rand((1, 8, 9000), device=dev)
-    with pytest.raises(RuntimeError, match="launch failed"):
+    before = cong.congestion_many.launches
+    with pytest.raises(ValueError, match="at most 8192 columns, got K=9000"):
         cong.congestion_many(s[:1], s[:1], wide, 4)
+    assert cong.congestion_many.launches == before
 
 
 @pytest.mark.parametrize("B,N,T,D", [(1, 1, 1, 1), (3, 33, 1, 2),
@@ -520,3 +526,93 @@ def test_tol_pipeline_on_the_card_matches_the_sequential_chain(dev):
         assert abs(a.objective - b.objective) <= _tol_slack(a, b)
     for a, b in zip(runs[False].entries, runs[True].entries):
         assert a["costs"] == b["costs"]
+
+
+# --- the constrained and GCT-like shapes ---------------------------------
+
+# a lowered Table-I instance (D = 5 + exclusivity + 8 anti-affinity groups,
+# n shortened by the affinity merges) and GCT-like T' of about 995 (D=2)
+@pytest.mark.parametrize("B,n,m,D,T", [
+    (16, 968, 10, 14, 24), (16, 1000, 10, 2, 995), (1, 1000, 10, 2, 993)])
+def test_congestion_lp_at_the_slice_shapes(dev, B, n, m, D, T):
+    g = torch.Generator().manual_seed(B + n + D + T)
+    s, e, w, x = _lp_inputs(g, B, n, m, D, T, dev)
+    got = cong.congestion_lp(s, e, w, x, T)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.congestion_lp_ref(s, e, w, x, T),
+                               rtol=TOL, atol=TOL)
+
+
+def test_congestion_refuses_wide_shapes_before_a_launch(dev):
+    s = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    before = cong.congestion_many.launches
+    with pytest.raises(ValueError, match=r"m\*D=8200"):
+        cong.congestion_lp(s, s, torch.rand((1, 8, 10, 820), device=dev),
+                           torch.rand((1, 8, 10), device=dev), 4)
+    cong.congestion_lp(s, s, torch.rand((1, 8, 8, 1024), device=dev),
+                       torch.rand((1, 8, 8), device=dev), 4)  # 8192 runs
+    torch.cuda.synchronize()
+    assert cong.congestion_many.launches == before + 1
+
+
+@pytest.mark.parametrize("similarity", [False, True])
+@pytest.mark.parametrize("A,L", [(119, 120), (16, 200)])
+def test_place_step_spills_gct_like_rows(dev, similarity, A, L):
+    """Pool rows of K = 995 * 2 doubles (15.9 KB): only a few fit the
+    shared-memory budget (14 rows at A=119), the rest take the spill path;
+    demands of up to 0.6 of a node open a node every task or two."""
+    g = torch.Generator().manual_seed(A + L)
+    args, rows = _sub_phase_inputs(g, A, L, 995, 2, 0.6, 0, True)
+    want_args = [t.to(dev) for t in args]
+    got_args = [t.to(dev) for t in args]
+    want = ref.sub_phase_ref(*want_args, 1e9, True, similarity)
+    info = {}
+    got = kstep.sub_phase(*got_args, 1e9, True, similarity, rows=rows,
+                          telemetry=info)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got_args[0], want_args[0])
+    assert int(got[:A].max()) > info["smem_rows"]  # the spill path ran
+
+
+def test_place_step_refuses_more_than_256_dimensions(dev):
+    g = torch.Generator().manual_seed(3)
+    args, rows = _sub_phase_inputs(g, 2, 3, 2, 257, 0.001, 0, True)
+    before = kstep.sub_phase.launches
+    with pytest.raises(ValueError, match="D <= 256, got 257"):
+        kstep.sub_phase(*[t.to(dev) for t in args], 1e9, True, False,
+                        rows=rows)
+    assert kstep.sub_phase.launches == before
+
+
+def test_constrained_fleet_on_the_card(dev):
+    import dataclasses
+
+    from repro_torch.core import (FleetEngine, PlacementConfig, SolverConfig,
+                                  TaskConstraints, check_plan, rightsize)
+    from repro_torch.workload import SyntheticSpec, synthetic_instance
+
+    fleet = []
+    for s in range(3):
+        p = synthetic_instance(SyntheticSpec(n=60, m=4, D=3, T=12, seed=s))
+        c = TaskConstraints.from_groups(
+            p.n, affinity={"a": (0, 1)}, anti_affinity={"s": (2, 3, 4)},
+            exclusive=(5, 6), deadlines={7: int(p.end[7])})
+        fleet.append(dataclasses.replace(p, constraints=c))
+    solver = SolverConfig(tol=5e-3, iters=4000, operator="pallas")
+    got = FleetEngine(solver=solver,
+                      placement=PlacementConfig(engine="compiled")
+                      ).evaluate(fleet)
+    want = FleetEngine(solver=solver, device="cpu").evaluate(fleet)
+    for i, (g, w) in enumerate(zip(got.lp_results, want.lp_results)):
+        assert g.converged and w.converged
+        assert g.lower_bound <= w.objective * (1 + 1e-6)
+        assert w.lower_bound <= g.objective * (1 + 1e-6)
+        if np.array_equal(g.mapping, w.mapping):
+            assert got.entries[i]["costs"] == want.entries[i]["costs"]
+    for p, r in zip(fleet, got.lp_results):
+        for algo in ("penalty-map-f", "lp-map-f"):
+            a = rightsize(p, algo, backend="kernel", lp_result=r)
+            b = rightsize(p, algo, lp_result=r, device="cpu")
+            assert np.array_equal(a.assign, b.assign)
+            assert check_plan(p, a) == []

@@ -151,16 +151,21 @@ def test_unported_options_raise():
 
 
 def test_active_constraints_raise():
+    """Active constraints are lowered by the entry points; only an entry
+    that takes plain instances (``trim_timeline``) still raises, naming
+    ``lower_constraints``."""
     import dataclasses
 
-    from repro.core import TaskConstraints
+    from repro_torch.core import TaskConstraints, check_plan, trim_timeline
 
     p = _small_fleet()[0]
     vacuous = dataclasses.replace(p, constraints=TaskConstraints.vacuous(p.n))
     rightsize(vacuous, "penalty-map", device="cpu")
     active = dataclasses.replace(
         p, constraints=TaskConstraints.from_groups(p.n, exclusive=(1,)))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        FleetEngine(device="cpu").evaluate([active])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        rightsize(active, device="cpu")
+    with pytest.raises(ValueError, match="lower_constraints"):
+        trim_timeline(active)
+    assert len(FleetEngine(device="cpu").evaluate([active]).entries) == 1
+    sol = rightsize(active, device="cpu")
+    assert check_plan(active, sol) == []
+    assert sol.meta["constrained"] is True

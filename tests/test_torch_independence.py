@@ -36,7 +36,8 @@ def test_package_has_the_slice_modules():
                  "kernels/ops.py", "kernels/ref.py", "kernels/build.py",
                  "workload/synthetic.py", "core/place_step.py",
                  "kernels/place_step.py", "core/rounding.py",
-                 "core/lowerbound.py"):
+                 "core/lowerbound.py", "core/constraints.py",
+                 "core/checker.py", "workload/gct.py", "workload/jobs.py"):
         assert name in rel, name
     for src in ("congestion.cu", "fit.cu", "place_step.cu"):
         assert (PKG / "kernels" / "csrc" / src).is_file(), src
@@ -47,6 +48,20 @@ def test_package_has_the_slice_modules():
 def test_no_jax_or_reference_imports(path):
     bad = _imported(path) & set(FORBIDDEN)
     assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def test_checker_imports_only_numpy_and_math():
+    """The feasibility oracle shares no code with the port: no relative
+    import, and no absolute one beyond numpy and math."""
+    tree = ast.parse((PKG / "core" / "checker.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, "checker.py has a relative import"
+            names.add(node.module.split(".")[0])
+    assert names - {"__future__"} == {"numpy", "math"}
 
 
 def test_imports_with_jax_and_reference_blocked():
