@@ -108,13 +108,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel (``backend="kernel"``) too; the last congestion apply and every
    lp-map stepper dispatch replayed on the plain versions.  (b) 16 GCT-like
    instances (``gct_like_instance(n=1000, m=10, seed=s)``, T' about 995,
-   D = 2) through the same evaluate: the protocol's placements bit-equal to
-   the numpy lockstep engine's and its costs equal, the last apply (T' about
+   D = 2) through the same evaluate: the lp-map calls' placements bit-equal
+   to the numpy lockstep engine's and their costs equal, the last apply (T' about
    995) within rtol/atol 1e-5 of the plain version, the type-parallel and
    the largest wave dispatch bit-equal to ``ref.sub_phase_ref`` with their
    ``smem_rows`` and spilled lanes.  Both print iterations and convergence
    per lane, lp_s and place_s, and the kernels' times and bounds at these
    shapes; the kernels line carries each kernel's phase-10 launches.
+
+11. the serving loop: ``gct_trace(TraceSpec(fleets=16, requests=160,
+   n0=1000, m=10, seed=0))`` (16 admissions of 1000-task GCT-like fleets, T'
+   about 997, D = 2, then 144 arrivals, departures and bursts) replayed with
+   ``replay(..., push_per_tick=16)`` under ``ServiceConfig()`` into
+   ``RightsizingService(engine=FleetEngine(solver=SolverConfig(tol=5e-3,
+   iters=4000, operator="pallas"), placement=PlacementConfig(
+   engine="compiled"), algos=("lp-map-f",)))``, counts set to 0 just before
+   and read just after; then a cold control (``ServiceConfig(warm_start=
+   False)``) and a ``replay_with_crash`` of the same trace (snapshot after
+   three ticks).  Both replays: one dispatch per tick, every lane
+   converged; per tick, congestion launches = 13 + its most iterations and
+   stepper launches = the compiled placement's dispatches; median warm
+   iterations below the cold control's; the proposed cost totals within
+   ``cost_drift_bound_pct``; every adopted plan clean under ``check_plan``
+   (on each fleet's start slots, see ``start_slots``);
+   the last tick's placements equal to the numpy lockstep engine's, its
+   last apply within rtol/atol 1e-5 of the plain version and its first
+   stepper dispatch bit-equal to ``ref.sub_phase_ref``; the recovered
+   replay's ``total_cost`` and ``proposed_cost_total`` bit-equal to the
+   uninterrupted one's.  It prints requests/s, p50/p99 re-plan latency,
+   iterations and, per tick, solve_s, place_s, lanes, warm lanes and
+   launches; the kernels line carries the phase-11 launches.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -1227,11 +1250,12 @@ def constrained_fleet(np, fleet) -> tuple[list, list, list]:
 
 
 def protocol_against_numpy(torch, np, kernels, kstep, res, what,
-                           kernel_lp=False, record=None) -> dict:
-    """Every ``place_many`` call of the protocol, bucket by bucket, on the
-    evaluate's own LP results: by the numpy lockstep engine and by the
-    compiled stepper, every ``assign`` and purchase bit-equal, and each
-    instance's best cost per algorithm equal to the evaluate's entry.  The
+                           kernel_lp=False, record=None, algos=None) -> dict:
+    """Every ``place_many`` call of the protocol (of ``algos`` only, when
+    given), bucket by bucket, on the evaluate's own LP results: by the numpy
+    lockstep engine and by the compiled stepper, every ``assign`` and
+    purchase bit-equal, and each instance's best cost per algorithm equal
+    to the evaluate's entry.  The
     compiled dispatches of the lp-map calls are recorded, or, with
     ``record``, those of its (algo, fit) calls only.  With ``kernel_lp`` the
     lp-map calls run once more through the fit kernel
@@ -1249,6 +1273,8 @@ def protocol_against_numpy(torch, np, kernels, kstep, res, what,
         lp = [res.lp_results[i] for i in bucket.indices]
         for algo, fit, filling, maps in protocol_calls(batch, lp,
                                                        FIT_POLICIES):
+            if algos is not None and algo not in algos:
+                continue
             t0 = time.perf_counter()
             sols_n = place_many(batch, maps, fit=fit, filling=filling)
             out["numpy_s"] += time.perf_counter() - t0
@@ -1283,7 +1309,7 @@ def protocol_against_numpy(torch, np, kernels, kstep, res, what,
                 c = b.cost(batch.problems[k])
                 best[i][algo] = min(best[i].get(algo, np.inf), c)
     for i, (entry, want) in enumerate(zip(res.entries, best)):
-        if entry["costs"] != want:
+        if {a: entry["costs"][a] for a in want} != want:
             raise AssertionError(
                 f"{what}: instance {i}: evaluate costs {entry['costs']} vs "
                 f"numpy lockstep {want}")
@@ -1454,13 +1480,15 @@ def gct_phase(torch, np, ref, kernels, cong, report) -> dict:
                 and all(np.isfinite(list(e["costs"].values())))):
             raise AssertionError(f"gct instance {i}: non-finite result {e}")
 
-    # the dispatches of the lp-map similarity calls are recorded: the
-    # type-parallel one (no filling) and the waves (filling)
+    # the numpy control runs the lp-map calls (the penalty-map ones would
+    # add about 15 s to the smoke); the dispatches of their similarity calls
+    # are recorded: the type-parallel one (no filling) and the waves
     prot = protocol_against_numpy(
         torch, np, kernels, kstep, res, "gct",
-        record={("lp-map", "similarity"), ("lp-map-f", "similarity")})
-    log(f"gct: {prot['calls']} protocol calls, compiled and numpy lockstep "
-        f"placements equal, best costs equal the evaluate's; numpy "
+        record={("lp-map", "similarity"), ("lp-map-f", "similarity")},
+        algos=("lp-map", "lp-map-f"))
+    log(f"gct: {prot['calls']} lp-map protocol calls, compiled and numpy "
+        f"lockstep placements equal, best costs equal the evaluate's; numpy "
         f"{prot['numpy_s']:.3f} s, compiled {prot['compiled_s']:.3f} s")
 
     apply = apply_timing(torch, ref, cong, last)
@@ -1499,6 +1527,248 @@ def gct_phase(torch, np, ref, kernels, cong, report) -> dict:
         "apply": apply, "place_step": steps, "phase_s": phase_s}
     return {"launches": launches, "apply": apply, "place_step": steps,
             "max_abs_err": apply["max_abs_err"], "pool_err": pool_err}
+
+
+# --- phase 11: the serving loop ----------------------------------------------
+
+SERVE_SPEC = dict(fleets=16, requests=160, n0=1000, m=10, seed=0)
+SERVE_PUSH = 16                # replay(..., push_per_tick=...)
+SERVE_CRASH_AFTER = 3          # replay_with_crash(crash_after_ticks=...)
+
+
+class FirstDispatch(Recorder):
+    """Keeps the inputs (cloned before the call) of the first stepper
+    dispatch since ``log`` was last emptied: one pool copy at a time."""
+
+    def __call__(self, *args, **kwargs):
+        if not self.log:
+            saved = tuple(a.clone() if isinstance(a, self.torch.Tensor) else a
+                          for a in args)
+            self.log.append((saved, {k: v for k, v in kwargs.items()
+                                     if k != "telemetry"}))
+        return self.orig(*args, **kwargs)
+
+
+def start_slots(np, problem):
+    """``problem`` (unconstrained) on the slots where one of its tasks
+    starts, each task ending at the last such slot at or before its end.  A
+    node's load rises only where a task starts, so ``check_plan`` finds a
+    plan over capacity here exactly where it would on the whole timeline,
+    whose scan walks every one of a GCT-like fleet's 86400 slots for every
+    node in Python."""
+    import dataclasses
+
+    if problem.constraints is not None:
+        raise ValueError("start_slots keeps no constraint semantics")
+    slots = np.unique(problem.start)
+    return dataclasses.replace(
+        problem, start=np.searchsorted(slots, problem.start),
+        end=np.searchsorted(slots, problem.end, side="right") - 1,
+        T=len(slots))
+
+
+def serve_engine():
+    """The serving loop's card configuration: the congestion kernel on every
+    LP apply, the compiled stepper on every placement sub-phase."""
+    from repro_torch.core import FleetEngine, PlacementConfig, SolverConfig
+
+    return FleetEngine(solver=SolverConfig(tol=TOL, iters=4000,
+                                           operator="pallas"),
+                       placement=PlacementConfig(engine="compiled"),
+                       algos=("lp-map-f",))
+
+
+def probed_replay(torch, kernels, svc, trace, cong, kstep):
+    """``replay`` with each tick probed: its record, launches per kernel
+    (the counts read before and after it), the compiled placement's
+    telemetry and, for the last tick that solved, its placement calls'
+    inputs and results, its last ``congestion_lp`` apply and its first
+    stepper dispatch.  Returns (report, [per-tick dict], those probes)."""
+    from repro_torch.core import engine as eng_mod
+    from repro_torch.serve import replay
+
+    ticks, cur, solved = [], {}, {}
+    place, tick = eng_mod.place_many, svc.tick
+
+    def placed(batch, maps, **kw):
+        tel: dict = {}
+        sols = place(batch, maps, telemetry=tel, **kw)
+        cur["place"].append((batch, maps, kw, sols, tel))
+        return sols
+
+    def probed_tick():
+        cur.clear()
+        cur["place"] = []
+        first.log = []
+        before = kernels.launch_counts()
+        rec = tick()
+        after = kernels.launch_counts()
+        if rec is not None:
+            ticks.append({"record": rec,
+                          "launches": {k: after[k] - before[k]
+                                       for k in after},
+                          "telemetry": [c[4] for c in cur["place"]]})
+            if rec.dispatches:
+                solved.clear()
+                solved.update(place=cur["place"], apply=last.args,
+                              dispatch=list(first.log))
+        return rec
+
+    eng_mod.place_many = placed
+    svc.tick = probed_tick
+    try:
+        with LastCall(cong, "congestion_lp") as last, \
+                FirstDispatch(torch, kstep, "sub_phase") as first:
+            rep = replay(svc, trace, push_per_tick=SERVE_PUSH)
+    finally:
+        eng_mod.place_many = place
+        del svc.tick
+    return rep, ticks, solved
+
+
+def serve_phase(torch, np, ref, kernels, cong, report) -> dict:
+    """Phase 11: the serving loop (see the module docstring).  Returns the
+    warm replay's launches per kernel."""
+    import tempfile
+
+    from repro_torch.core import check_plan, place_many
+    from repro_torch.kernels import place_step as kstep
+    from repro_torch.serve import (RightsizingService, ServiceConfig,
+                                   TraceSpec, gct_trace, replay,
+                                   replay_with_crash)
+
+    t_phase = time.perf_counter()
+    trace = gct_trace(TraceSpec(**SERVE_SPEC))
+    log(f"serve: gct_trace {SERVE_SPEC}: {len(trace)} requests, "
+        f"replay(push_per_tick={SERVE_PUSH}) under ServiceConfig()")
+
+    svc = RightsizingService(engine=serve_engine())
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep, ticks, last = probed_replay(torch, kernels, svc, trace, cong, kstep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    cold_svc = RightsizingService(engine=serve_engine(),
+                                  config=ServiceConfig(warm_start=False))
+    cold = replay(cold_svc, trace, push_per_tick=SERVE_PUSH)
+    cold_wall = time.perf_counter() - t0
+
+    for label, r in (("warm", rep), ("cold", cold)):
+        log(f"serve: {label} replay: ticks {r['ticks']}, requests "
+            f"{r['requests']}, requests_per_s {r['requests_per_s']}, p50 "
+            f"{r['p50_replan_s']} s, p99 {r['p99_replan_s']} s, median "
+            f"iterations warm {r['median_iters_warm']} cold "
+            f"{r['median_iters_cold']} admit {r['median_iters_admit']}, "
+            f"converged_frac {r['converged_frac']}, dispatches_per_tick "
+            f"{r['dispatches_per_tick']}, total_cost {r['total_cost']}, "
+            f"proposed_cost_total {r['proposed_cost_total']}")
+        if r["dispatches_per_tick"] != 1 or r["converged_frac"] != 1.0:
+            raise AssertionError(f"serve {label}: {r}")
+    log(f"serve: warm replay wall {wall:.3f} s, cold {cold_wall:.3f} s; "
+        f"launches {launches}")
+    rows = []
+    for t in ticks:
+        rec, got = t["record"], t["launches"]
+        dispatches = sum(tel.get("dispatches", 0) for tel in t["telemetry"])
+        rows.append({"tick": rec.tick, "solve_s": rec.solve_s,
+                     "place_s": rec.place_s, "lanes": len(rec.iters),
+                     "warm_lanes": rec.warm_lanes,
+                     "max_iters": max(rec.iters, default=0),
+                     "congestion": got["congestion_many"],
+                     "place_step": got["place_step"],
+                     "dispatches": dispatches})
+        log(f"serve: tick {rec.tick}: solve_s {rec.solve_s:.4f} place_s "
+            f"{rec.place_s:.4f}, lanes {len(rec.iters)} (warm "
+            f"{rec.warm_lanes}), iterations {list(rec.iters)}, congestion "
+            f"launches {got['congestion_many']}, stepper launches "
+            f"{got['place_step']}")
+        want = 13 + max(rec.iters) if rec.dispatches else 0
+        if got["congestion_many"] != want:
+            raise AssertionError(
+                f"serve tick {rec.tick}: {got['congestion_many']} congestion "
+                f"launches, want 13 + max iterations = {want}")
+        if any(tel.get("engine") != "compiled" for tel in t["telemetry"]) \
+                or got["place_step"] != dispatches:
+            raise AssertionError(
+                f"serve tick {rec.tick}: {got['place_step']} stepper "
+                f"launches vs telemetry {t['telemetry']}")
+        if any(got[k] for k in ("fit_scores_many", "fit_scores",
+                                "two_phase")):
+            raise AssertionError(f"serve tick {rec.tick}: launched {got}")
+    if launches["place_step"] <= 0 or launches["congestion_many"] <= 0:
+        raise AssertionError(f"serve: the kernels never launched: {launches}")
+    warm_med, cold_med = rep["median_iters_warm"], cold["median_iters_cold"]
+    if warm_med is None or cold_med is None or not warm_med < cold_med:
+        raise AssertionError(
+            f"serve: median warm iterations {warm_med} not below the cold "
+            f"control's {cold_med}")
+    drift = abs(rep["proposed_cost_total"] - cold["proposed_cost_total"]) \
+        / cold["proposed_cost_total"] * 100.0
+    if drift > ServiceConfig().cost_drift_bound_pct:
+        raise AssertionError(f"serve: warm/cold drift {drift:.3f}%")
+    for label, s in (("warm", svc), ("cold", cold_svc)):
+        for name in s.fleets:
+            st = s._fleets[name]
+            bad = check_plan(start_slots(np, st.problem), st.solution)
+            if bad:
+                raise AssertionError(f"serve {label} {name}: {bad[:3]}")
+    log(f"serve: warm/cold proposed cost drift {drift:.4f}% (bound "
+        f"{ServiceConfig().cost_drift_bound_pct}%); {len(svc.fleets)} + "
+        f"{len(cold_svc.fleets)} adopted plans clean under check_plan")
+
+    # the last tick that solved: placements, its last apply and one stepper
+    # dispatch against the numpy engine and the plain versions
+    for batch, maps, kw, sols, _ in last["place"]:
+        want = place_many(batch, maps, fit=kw["fit"], filling=kw["filling"])
+        for b, (g, w) in enumerate(zip(sols, want)):
+            if not (np.array_equal(g.assign, w.assign)
+                    and np.array_equal(g.node_type, w.node_type)):
+                raise AssertionError(
+                    f"serve last tick {kw['fit']} lane {b}: compiled "
+                    f"placement differs from the numpy lockstep engine's")
+    start, end, w_all, x, Tp = last["apply"]
+    B, n, m, D = w_all.shape
+    apply_err = check_congestion_lp(torch, ref, cong, start, end, w_all, x,
+                                    Tp, f"serve B={B} n={n} m={m} D={D} "
+                                        f"T'={Tp}")
+    pool_err, mismatches = replay_dispatches(
+        torch, ref, kstep, last["dispatch"], ["serve last tick"])
+    log(f"serve: last tick: {len(last['place'])} placement calls equal to "
+        f"the numpy lockstep engine's; last apply at B={B} n={n} m={m} "
+        f"D={D} T'={Tp} within rtol/atol {CONG_RTOL} of the plain version "
+        f"(max |err| {apply_err:.3g}); first stepper dispatch (pool "
+        f"{tuple(last['dispatch'][0][0][0].shape)}) bit-equal to the plain "
+        f"version (max |pool err| {pool_err}, {mismatches} differ)")
+    last.clear()
+
+    # crash and recover: the same trace, snapshot after three ticks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as snap:
+        crash, crashed = replay_with_crash(
+            RightsizingService(engine=serve_engine()), trace,
+            crash_after_ticks=SERVE_CRASH_AFTER, snapshot_dir=snap,
+            push_per_tick=SERVE_PUSH)
+    crash_wall = time.perf_counter() - t0
+    log(f"serve: crash after {SERVE_CRASH_AFTER} ticks and restore: "
+        f"total_cost {crash['total_cost']} proposed_cost_total "
+        f"{crash['proposed_cost_total']} (uninterrupted {rep['total_cost']}, "
+        f"{rep['proposed_cost_total']}); {crash_wall:.3f} s")
+    if not crashed or crash["total_cost"] != rep["total_cost"] or \
+            crash["proposed_cost_total"] != rep["proposed_cost_total"]:
+        raise AssertionError(
+            f"serve: the recovered replay differs: {crash} vs {rep}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"serve: phase 11 took {phase_s:.1f} s")
+    report["serve"] = {
+        "spec": SERVE_SPEC, "push_per_tick": SERVE_PUSH, "warm": rep,
+        "cold": cold, "crash": crash, "warm_wall_s": wall,
+        "cold_wall_s": cold_wall, "crash_wall_s": crash_wall,
+        "ticks": rows, "launches": launches, "drift_pct": drift,
+        "apply_max_abs_err": apply_err, "phase_s": phase_s}
+    return {"launches": launches, "max_abs_err": apply_err}
 
 
 def walk_work(args, work) -> tuple[float, float]:
@@ -2077,6 +2347,15 @@ def main(argv=None) -> int:
         "gct type-parallel": gct["place_step"]["type-parallel"]["ms"],
         "gct wave": gct["place_step"]["wave-sequential"]["ms"]}
 
+    # 11. the serving loop on a GCT-like trace
+    serve = serve_phase(torch, np, ref, kernels, cong, report)
+    for name, key in (("congestion_many", "congestion_many"),
+                      ("congestion_lp", "congestion_many"),
+                      ("place_step", "place_step")):
+        kinfo[name]["phase11_launches"] = serve["launches"][key]
+    kinfo["congestion_lp"]["max_abs_err"] = max(
+        kinfo["congestion_lp"]["max_abs_err"], serve["max_abs_err"])
+
     # the congestion kernel's one counter counts both of its entries; the
     # main path launches it only through congestion_lp
     runs = {"congestion_many": launches["congestion_many"],
@@ -2098,7 +2377,8 @@ def main(argv=None) -> int:
          **{key: kinfo[name][key] for key in ("latency_bound_ms",
                                               "tol_launches",
                                               "phase10_launches",
-                                              "phase10_ms")
+                                              "phase10_ms",
+                                              "phase11_launches")
             if key in kinfo[name]}}
         for name in SOURCES]}
     report["kernels"] = kinfo

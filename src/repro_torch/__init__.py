@@ -7,8 +7,10 @@ for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.  Entry
 points run on the CUDA card unless given ``device="cpu"``, where every
 kernel is replaced by its plain PyTorch version.
 
-This slice covers the fleet evaluation path: pack, the legacy batched PDHG
-solve and the lockstep placement (``FleetEngine.evaluate``).
+The port covers the fleet evaluation path (``FleetEngine.evaluate``: pack,
+the batched PDHG solve in legacy and tolerance mode, the placement engines),
+constraints and the feasibility oracle, the workloads, and the serving loop
+(``repro_torch.serve.RightsizingService``).
 """
 
 from .core import (

@@ -8,6 +8,12 @@ package; constraints come across as the port's own ``TaskConstraints``.
 ``state_from_numpy`` builds a ``PDHGState`` from numpy iterates.  The tests
 use both to feed identical instances and iterates to the reference and to
 the port.
+
+A live serving loop needs no helper here: ``serve.snapshot`` reads and
+writes the reference's snapshot format (the same manifest, arrays, version
+and checksum), so a reference ``RightsizingService.snapshot(path)`` restores
+in the port with ``repro_torch.serve.RightsizingService.restore(path)``,
+warm states bit for bit, and the other way round.
 """
 
 from __future__ import annotations

@@ -22,7 +22,11 @@ over repeated applies and within 1e-12 of the dense form on the CPU; the
 constrained and GCT-like shapes (a lowered D of 14, T' about 995, pool rows
 of about 2000 doubles that spill) held as above, the shapes the kernels do
 not take refused with ``ValueError`` before any launch, and a constrained
-fleet's plans on the card equal to the CPU's and clean under the oracle.
+fleet's plans on the card equal to the CPU's and clean under the oracle;
+the serving loop in the kernel configuration ticked to its end twice with
+bit-equal plans and reports (all but the wall-clock fields), every plan clean
+under the oracle and every tick's compiled placements equal to the numpy
+lockstep engine's.
 """
 
 import numpy as np
@@ -616,3 +620,79 @@ def test_constrained_fleet_on_the_card(dev):
             b = rightsize(p, algo, lp_result=r, device="cpu")
             assert np.array_equal(a.assign, b.assign)
             assert check_plan(p, a) == []
+
+
+def _serve_on_the_card():
+    """A two-fleet GCT-like trace through the serving loop in the kernel
+    configuration (the congestion kernel on every LP apply, the compiled
+    stepper on every placement sub-phase), ticked to its end.  Returns the
+    service and, per tick, each placement call's inputs and compiled
+    placements."""
+    from repro_torch.core import (FleetEngine, PlacementConfig, SolverConfig,
+                                  engine)
+    from repro_torch.serve import (RightsizingService, TraceSpec, gct_trace,
+                                   replay)
+
+    svc = RightsizingService(engine=FleetEngine(
+        solver=SolverConfig(tol=5e-3, iters=4000, operator="pallas"),
+        placement=PlacementConfig(engine="compiled"), algos=("lp-map-f",)))
+    calls, place = [], engine.place_many
+
+    def recorded(batch, maps, **kw):
+        tel: dict = {}
+        sols = place(batch, maps, telemetry=tel, **kw)
+        assert tel["engine"] == "compiled", tel
+        calls.append((svc._tick, batch, [np.array(m) for m in maps], kw,
+                      sols))
+        return sols
+
+    engine.place_many = recorded
+    try:
+        replay(svc, gct_trace(TraceSpec(fleets=2, requests=40, n0=60, m=5,
+                                        seed=3)), push_per_tick=6)
+    finally:
+        engine.place_many = place
+    return svc, calls
+
+
+def _deterministic(svc) -> dict:
+    rep = svc.report()
+    for key in ("wall_s", "requests_per_s", "p50_replan_s", "p99_replan_s"):
+        rep.pop(key)
+    return {"report": rep,
+            "ticks": [{k: v for k, v in t.to_dict().items()
+                       if k not in ("solve_s", "place_s", "total_s")}
+                      for t in svc.ticks],
+            "plans": {f: svc.fleet(f).plan.tolist() for f in svc.fleets},
+            "assign": {f: svc.fleet(f).solution.assign.tolist()
+                       for f in svc.fleets},
+            "events": [e.to_dict() for e in svc.events]}
+
+
+def test_serving_loop_on_the_card_is_deterministic_and_clean(dev):
+    from repro_torch.core import check_plan
+
+    a, calls = _serve_on_the_card()
+    b, _ = _serve_on_the_card()
+    rep = a.report()
+    assert rep["dispatches_per_tick"] == 1 and rep["converged_frac"] == 1.0
+    assert rep["ticks"] > 2 and rep["warm_lanes"] > 0
+    assert _deterministic(a) == _deterministic(b)
+    for name in a.fleets:
+        st = a._fleets[name]
+        assert check_plan(st.problem, st.solution) == []
+    assert calls
+
+
+def test_serving_loop_placements_equal_the_lockstep_engine(dev):
+    from repro_torch.core import place_many
+
+    _, calls = _serve_on_the_card()
+    ticks = {c[0] for c in calls}
+    assert len(ticks) > 2
+    for tick, batch, maps, kw, sols in calls:
+        want = place_many(batch, maps, fit=kw["fit"], filling=kw["filling"],
+                          device="cpu")
+        for lane, (g, w) in enumerate(zip(sols, want)):
+            assert np.array_equal(g.assign, w.assign), (tick, lane)
+            assert np.array_equal(g.node_type, w.node_type), (tick, lane)

@@ -37,7 +37,10 @@ def test_package_has_the_slice_modules():
                  "workload/synthetic.py", "core/place_step.py",
                  "kernels/place_step.py", "core/rounding.py",
                  "core/lowerbound.py", "core/constraints.py",
-                 "core/checker.py", "workload/gct.py", "workload/jobs.py"):
+                 "core/checker.py", "workload/gct.py", "workload/jobs.py",
+                 "serve/__init__.py", "serve/config.py", "serve/queue.py",
+                 "serve/scale.py", "serve/faults.py", "serve/service.py",
+                 "serve/snapshot.py", "serve/trace.py"):
         assert name in rel, name
     for src in ("congestion.cu", "fit.cu", "place_step.cu"):
         assert (PKG / "kernels" / "csrc" / src).is_file(), src
@@ -89,13 +92,15 @@ print("ok", len({mods!r}))
     assert out.stdout.startswith("ok")
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from repro_torch.core import (FleetEngine, place_many, rightsize,
                                   solve_lp_many, two_phase)
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
+    from repro_torch.serve import RightsizingService
     from repro_torch.workload import SyntheticSpec, synthetic_instance
 
+    RightsizingService(device="cpu").snapshot(str(tmp_path))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     p = synthetic_instance(SyntheticSpec(n=8, m=2, D=2, T=5))
     mapping = [0] * p.n
@@ -107,9 +112,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: rightsize(p, "penalty-map"),
         lambda: ops.congestion([0], [0], [[1.0]], 1),
         lambda: resolve_device("cuda"),
+        lambda: RightsizingService(),
+        lambda: RightsizingService.restore(str(tmp_path)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu").type == "cpu"
     assert len(FleetEngine(device="cpu").evaluate([p]).entries) == 1
+    assert RightsizingService.restore(str(tmp_path),
+                                      device="cpu").fleets == ()

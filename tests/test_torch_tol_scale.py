@@ -37,14 +37,19 @@ measure the same spreads over more seeds, with the port's own ``dense``
 against ``cumsum`` beside them::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_tol_scale.py 10 26
+
+``--trace [SEED] [--ref-ruiz]`` follows one lane (default seed 12) check by
+check through both solves and stops where they part (see ``_trace``).
 """
 
 import sys
 
 import jax
 import jax.experimental
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.core as J
 from repro.core import batch as jbatch
@@ -165,8 +170,143 @@ def test_port_gaps_hold_at_their_recorded_readings(runs):
     assert port["max_rel_bound"] <= GAP_LIMITS["max_rel_bound"]
 
 
+def _trace(seed: int, ref_ruiz: bool = False) -> None:
+    """Per-check trace of one lane: the reference's tol solve and the
+    port's (``dense``, mixed precision) on the packed batch of ``SEEDS``
+    (plus ``seed``), following the lane of ``seed``.  Prints the Ruiz
+    scalings and the first step size of both sides, then at every check
+    (each ``check_every`` attempts) max |dx| and |dy| in unscaled
+    coordinates, eta, omega, restarts and the normalized gaps, and stops
+    at the first check where a restart decision, eta or omega differ by
+    more than the float32 spacing.  ``ref_ruiz`` hands the port the
+    reference's Ruiz scalings, to see where the two part after them."""
+    seeds = sorted(set(SEEDS) | {seed})
+    lane = seeds.index(seed)
+    probs = [J.trim_timeline(synthetic_instance(SyntheticSpec(seed=s)))[0]
+             for s in seeds]
+    batch = J.pack_problems(probs, assume_trimmed=True)
+    statics = dict(max_iters=CAP, check_every=jbatch.DEFAULT_CHECK_EVERY,
+                   Tp=batch.Tp, operator="dense", adaptive=True,
+                   restart=True, power_iters=12, scaling="ruiz",
+                   precision="mixed", omega_on=True)
+    fields = ("k", "x", "y", "eta", "omega", "restarts_b", "gap_b",
+              "last_gap")
+
+    def reading(vals):
+        return {f: (int(v) if f == "k" else np.array(v[lane]))
+                for f, v in zip(fields, vals)}
+
+    # reference: every loop carry passes through a host callback
+    ref = []
+    while_loop = jax.lax.while_loop
+
+    def traced_while(cond, body, init):
+        if not isinstance(init, jbatch._TolCarry):
+            return while_loop(cond, body, init)
+
+        def record(c):
+            jax.debug.callback(lambda *v: ref.append(reading(v)),
+                               *(getattr(c, f) for f in fields))
+
+        def body_rec(c):
+            c = body(c)
+            record(c)
+            return c
+
+        record(init)
+        return while_loop(cond, body_rec, init)
+
+    with jax.enable_x64(True):
+        w = jnp.asarray(batch.weights(), jnp.float32)
+        args = (w, jnp.asarray(batch.start), jnp.asarray(batch.end),
+                jnp.asarray(batch.feas), jnp.asarray(batch.cost, jnp.float32),
+                jnp.float32(0.9), jnp.float32(TOL))
+        jax.lax.while_loop = traced_while
+        try:
+            core = jax.jit(jbatch._tol_core,
+                           static_argnames=tuple(statics) + ("power_iters",))
+            out = core(*args, **statics)
+        finally:
+            jax.lax.while_loop = while_loop
+        c_ref, r_ref = (np.asarray(a)[lane]
+                        for a in jax.jit(jbatch._ruiz_scalings)(w))
+    # the callbacks must not have moved the reference off its own run
+    plain = jbatch.solve_lp_many(probs, operator="dense", tol=TOL, iters=CAP)
+    assert [r.iters for r in plain] == [int(i) for i in out[5]]
+
+    # port: the carry records itself whenever a check sets its mask
+    port = []
+
+    class _Carry(tbatch._TolCarry):
+        def __setattr__(self, name, value):
+            object.__setattr__(self, name, value)
+            if (name == "conv" and "dys" in self.__dict__) or (
+                    name == "dys" and not port):
+                port.append(reading(
+                    [self.k] + [getattr(self, f).numpy()
+                                for f in fields[1:]]))
+
+    tb = tbatch.pack_problems([problem_from_arrays(p) for p in probs],
+                              assume_trimmed=True)
+    arrays = tbatch._device_arrays(tb, torch.float32, torch.device("cpu"))
+    carry, ruiz = tbatch._TolCarry, tbatch._ruiz_scalings
+    tbatch._TolCarry = _Carry
+    if ref_ruiz:
+        scales = tuple(torch.from_numpy(np.array(a))
+                       for a in jax.jit(jbatch._ruiz_scalings)(w))
+        tbatch._ruiz_scalings = lambda *_: scales
+    try:
+        with torch.no_grad():
+            tbatch._tol_core(*arrays, tbatch._f32(0.9), tbatch._f32(TOL),
+                             **statics)
+        c_port, r_port = (a[lane].numpy()
+                          for a in tbatch._ruiz_scalings(arrays[0]))
+    finally:
+        tbatch._TolCarry, tbatch._ruiz_scalings = carry, ruiz
+    # XLA compiles a / sqrt(b) (the Ruiz row update) to a * rsqrt(b), and
+    # its float32 rsqrt is not the correctly rounded one
+    a, b = np.random.default_rng(0).uniform(1e-3, 1e3, (2, 100000)).astype(
+        np.float32)
+    xla = np.asarray(jax.jit(lambda a, b: a / jnp.sqrt(b))(a, b))
+    print(f"a / sqrt(b) compiled by XLA differs from the IEEE quotient in "
+          f"{int((xla != a / np.sqrt(b)).sum())} of {a.size} float32 pairs")
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    print(f"seed {seed} (lane {lane} of seeds {seeds}): Ruiz column scales "
+          f"differ in {int((c_port != c_ref).sum())} of {c_ref.size} "
+          f"(max rel {rel(c_port, c_ref):.3g}), row scales in "
+          f"{int((r_port != r_ref).sum())} of {r_ref.size} (max rel "
+          f"{rel(r_port, r_ref):.3g}); first eta {ref[0]['eta']:.10g} "
+          f"(ref) {port[0]['eta']:.10g} (port)")
+    for a, b in zip(ref[1:], port[1:]):
+        dx = np.abs(a["x"] / c_ref[:, None] - b["x"] / c_port[:, None]).max()
+        dy = np.abs(a["y"] * r_ref[None, :, None]
+                    - b["y"] * r_port[None, :, None]).max()
+        print(f"check at k={a['k']} (port k={b['k']}): max|dx| {dx:.3g} "
+              f"max|dy| {dy:.3g}; eta {a['eta']:.9g} / {b['eta']:.9g}, "
+              f"omega {a['omega']:.9g} / {b['omega']:.9g}, restarts "
+              f"{a['restarts_b']} / {b['restarts_b']}, gap "
+              f"{a['gap_b']:.6g} / {b['gap_b']:.6g}, last restart gap "
+              f"{a['last_gap']:.6g} / {b['last_gap']:.6g} (ref / port)")
+        apart = [name for name in ("eta", "omega")
+                 if abs(a[name] - b[name])
+                 > np.spacing(np.float32(a[name]))]
+        if a["restarts_b"] != b["restarts_b"]:
+            apart.append("restart decision")
+        if apart:
+            print(f"first parting at k={a['k']}: {', '.join(apart)}")
+            break
+
+
 if __name__ == "__main__":
     jax.experimental.enable_x64 = _enable_x64
+    if sys.argv[1:2] == ["--trace"]:
+        args = sys.argv[2:]
+        _trace(int(args[0]) if args[:1] and args[0].isdigit() else 12,
+               ref_ruiz="--ref-ruiz" in args)
+        sys.exit(0)
     lo, hi = (int(v) for v in sys.argv[1:3])
     got = _solve(range(lo, hi), port_cumsum=True)
     for a, b in [("port", "ref dense"), ("port cumsum", "ref cumsum"),
