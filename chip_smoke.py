@@ -139,6 +139,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    iterations and, per tick, solve_s, place_s, lanes, warm lanes and
    launches; the kernels line carries the phase-11 launches.
 
+12. stochastic planning, in phase 11's card configuration, each run with
+   the launch counts set to 0 just before and read just after.  (a)
+   ``plan_stochastic(gct_forecast(n=1000, m=10, seed=0, cost_model="gce",
+   load_sigma=0.15, diurnal_amp=0.10, burst_prob=0.15, burst_alpha=1.6,
+   burst_cap=8.0), StochasticConfig(scenarios=64, cvar_lambda=2.0, ...))``
+   (the reference's golden burst grid at the paper's real-world width): one
+   LP dispatch in one bucket, every lane converged, congestion launches =
+   13 + the most iterations, stepper launches = the compiled placements'
+   dispatches; every placement call and every scenario's plan and cost
+   equal to the numpy lockstep engine's on the same LP mappings; the last
+   apply within rtol/atol 1e-5 of the plain version, the first and the
+   widest stepper dispatch bit-equal to ``ref.sub_phase_ref`` (both timed,
+   with their bounds); ``fleet_cost <= max_fleet_cost``; a second call's
+   ``summary()`` bit-equal.  (b) the golden grid at its own width (n=120,
+   m=6): the structural invariants of ``benchmarks/check_stochastic.py``
+   held, and how many of the golden's pinned fields and frontier rows it
+   reproduces within 1e-6 printed.  (c) a zero-variance forecast at K = 1
+   on Table-I instance 0: its scenario cost equal to
+   ``FleetEngine.evaluate``'s lp-map-f cost.  (d)
+   ``svc.preprovision(<first fleet>)`` on phase 11's warm-replayed service:
+   one dispatch, launches as in (a), the plan grown elementwise, one
+   ``ScaleEvent(scope="preprovision")`` priced at the adopted plan, the
+   placement untouched.  (e) ``python -m repro_torch.launch.rightsize plan
+   --scenarios 16 --lp-tol 5e-3 --lp-iters 4000 --operator pallas
+   --placement compiled`` on the jobs fleet: the point plan's LP and one
+   scenario dispatch, launches counted.  The kernels line carries each
+   run's phase-12 launches.
+
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
@@ -1768,7 +1796,376 @@ def serve_phase(torch, np, ref, kernels, cong, report) -> dict:
         "cold_wall_s": cold_wall, "crash_wall_s": crash_wall,
         "ticks": rows, "launches": launches, "drift_pct": drift,
         "apply_max_abs_err": apply_err, "phase_s": phase_s}
-    return {"launches": launches, "max_abs_err": apply_err}
+    return {"launches": launches, "max_abs_err": apply_err, "service": svc}
+
+
+# --- phase 12: stochastic planning -------------------------------------------
+
+# the reference's golden burst grid (benchmarks/stochastic_smoke.py
+# GOLDEN_FORECAST, GOLDEN_SELECT, GOLDEN_K), at its own width and at the
+# paper's real-world width
+STOCH_CHANNELS = dict(cost_model="gce", e=1.0, load_sigma=0.15,
+                      diurnal_amp=0.10, burst_prob=0.15, burst_alpha=1.6,
+                      burst_cap=8.0)
+STOCH_SELECT = dict(seed=0, cvar_alpha=0.9, cvar_lambda=2.0,
+                    overload_premium=3.0, recfg_weight=0.0, quantiles=9,
+                    algo="lp-map-f")
+STOCH_K = 64
+STOCH_FULL = dict(n=1000, m=10, seed=0)
+STOCH_GOLDEN = dict(n=120, m=6, seed=0)
+# benchmarks/check_stochastic.py's _PINNED summary fields
+STOCH_PINNED = ("fleet", "fleet_cost", "expected_fleet",
+                "expected_fleet_cost", "mean_scenario_cost",
+                "worst_scenario_cost", "max_fleet_cost", "mean_overload",
+                "cvar_overload", "worst_overload",
+                "expected_fleet_worst_overload")
+STOCH_GOLDEN_TOL = 1e-6        # check_stochastic's relative slack
+
+
+class WidestDispatch(FirstDispatch):
+    """``FirstDispatch`` that also keeps, in ``widest``, the inputs of the
+    dispatch with the most lane-steps (A x L) since it was last reset."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.widest = None
+
+    def __call__(self, *args, **kwargs):
+        size = args[0].shape[0] * args[3].shape[0]
+        if self.widest is None or \
+                size > self.widest[0][0].shape[0] * self.widest[0][3].shape[0]:
+            self.widest = None  # one copy at a time
+            self.widest = (tuple(a.clone() if isinstance(a, self.torch.Tensor)
+                                 else a for a in args),
+                           {k: v for k, v in kwargs.items()
+                            if k != "telemetry"})
+        return super().__call__(*args, **kwargs)
+
+
+def probed_plan(torch, kernels, cong, kstep, engine, run):
+    """``run()`` (a ``plan_stochastic`` or ``preprovision`` call through
+    ``engine``) probed: launch counts set to 0 just before it and read just
+    after, solver dispatches, its ``solve_scenarios`` LP results, each
+    placement call's inputs, telemetry and placements, its last
+    ``congestion_lp`` apply and its first and widest stepper dispatches."""
+    from repro_torch.core import engine as eng_mod
+    from repro_torch.core.batch import dispatch_count
+
+    probe = {"lp": [], "place": []}
+    solve, place = engine.solve_scenarios, eng_mod.place_many
+
+    def solved(problems, init=None):
+        out = solve(problems, init=init)
+        probe["lp"].append(out[0])
+        return out
+
+    def placed(batch, maps, **kw):
+        tel: dict = {}
+        sols = place(batch, maps, telemetry=tel, **kw)
+        probe["place"].append((batch, maps, kw, tel, sols))
+        return sols
+
+    engine.solve_scenarios = solved
+    eng_mod.place_many = placed
+    try:
+        with LastCall(cong, "congestion_lp") as last, \
+                WidestDispatch(torch, kstep, "sub_phase") as disp:
+            kernels.reset_launch_counts()
+            d0 = dispatch_count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            probe["wall_s"] = time.perf_counter() - t0
+            probe["launches"] = kernels.launch_counts()
+            probe["dispatches"] = dispatch_count() - d0
+    finally:
+        eng_mod.place_many = place
+        del engine.solve_scenarios
+    probe.update(apply=last.args, first=list(disp.log), widest=disp.widest)
+    return res, probe
+
+
+def check_plan_launches(res, probe, what):
+    """One LP dispatch, congestion launches = 13 + the most iterations,
+    stepper launches = the compiled placements' dispatches, no fallback and
+    no other kernel."""
+    got = probe["launches"]
+    its = res.stats[0].iterations
+    steps = sum(tel.get("dispatches", 0) for *_, tel, _ in probe["place"])
+    if probe["dispatches"] != 1 or res.lp_dispatches != 1 \
+            or res.buckets != 1 or len(probe["lp"]) != 1:
+        raise AssertionError(
+            f"{what}: {probe['dispatches']} solver dispatches "
+            f"(lp_dispatches {res.lp_dispatches}, buckets {res.buckets})")
+    if not all(bool(s.converged.all()) for s in res.stats):
+        raise AssertionError(f"{what}: a lane did not converge: {its}")
+    if got["congestion_many"] != 13 + int(its.max()):
+        raise AssertionError(
+            f"{what}: {got['congestion_many']} congestion launches, want 13 "
+            f"+ max iterations = {13 + int(its.max())}")
+    if any(tel.get("engine") != "compiled" for *_, tel, _ in probe["place"]) \
+            or got["place_step"] != steps or steps <= 0:
+        raise AssertionError(
+            f"{what}: {got['place_step']} stepper launches vs telemetry "
+            f"{[tel for *_, tel, _ in probe['place']]}")
+    if any(got[k] for k in ("fit_scores_many", "fit_scores", "two_phase")):
+        raise AssertionError(f"{what}: launched {got}")
+    return steps
+
+
+def plans_against_numpy(np, res, probe, what) -> float:
+    """Every placement call of the run against the numpy lockstep engine on
+    the same LP mappings, fit for fit: placements equal, and each
+    scenario's cheapest plan and cost equal to the run's.  Returns the
+    numpy seconds."""
+    from repro_torch.core import place_many
+
+    best = np.full(res.K, np.inf)
+    plans = np.zeros_like(res.scenario_plans)
+    t0 = time.perf_counter()
+    for batch, maps, kw, _, sols in probe["place"]:
+        want = place_many(batch, maps, fit=kw["fit"], filling=kw["filling"],
+                          device="cpu")
+        for b, (g, w, t) in enumerate(zip(sols, want, batch.problems)):
+            if not (np.array_equal(g.assign, w.assign)
+                    and np.array_equal(g.node_type, w.node_type)):
+                raise AssertionError(
+                    f"{what} {kw['fit']} scenario {b}: compiled placement "
+                    f"differs from the numpy lockstep engine's")
+            cost = w.cost(t)
+            if cost < best[b]:
+                best[b], plans[b] = cost, w.nodes_per_type(t)
+    if not (np.array_equal(best, res.scenario_costs)
+            and np.array_equal(plans, res.scenario_plans)):
+        raise AssertionError(
+            f"{what}: scenario plans or costs differ from the numpy lockstep "
+            f"engine's")
+    return time.perf_counter() - t0
+
+
+def stochastic_line(np, res) -> str:
+    its = res.stats[0].iterations
+    return (f"K {res.K}, lp_s {res.timings['lp_s']:.3f}, place_s "
+            f"{res.timings['place_s']:.3f}, iterations median "
+            f"{float(np.median(its))} max {int(its.max())}, restarts "
+            f"{int(res.stats[0].restarts.sum())}")
+
+
+def stochastic_phase(torch, np, ref, kernels, cong, fleet, svc,
+                     report) -> dict:
+    """Phase 12: stochastic planning (see the module docstring).  ``svc`` is
+    phase 11's warm-replayed service.  Returns each run's launches and the
+    kernels' timings at the full-width shapes."""
+    import contextlib
+    import io
+
+    from repro_torch.core.batch import dispatch_count
+    from repro_torch.kernels import place_step as kstep
+    from repro_torch.launch import rightsize as cli
+    from repro_torch.stochastic import (DemandForecast, StochasticConfig,
+                                        gct_forecast, plan_stochastic)
+
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}}
+
+    # (a) the golden burst grid at full width
+    fc = gct_forecast(**STOCH_FULL, **STOCH_CHANNELS)
+    config = StochasticConfig(scenarios=STOCH_K, **STOCH_SELECT)
+    engine = serve_engine()
+    log(f"stochastic: gct_forecast({STOCH_FULL}, {STOCH_CHANNELS}), "
+        f"StochasticConfig(scenarios={STOCH_K}, {STOCH_SELECT}), the serving "
+        f"loop's card engine")
+    res, probe = probed_plan(torch, kernels, cong, kstep, engine,
+                             lambda: plan_stochastic(fc, config,
+                                                     engine=engine))
+    steps = check_plan_launches(res, probe, "stochastic full")
+    out["launches"]["full"] = probe["launches"]
+    summ = res.summary()
+    log(f"stochastic full: {stochastic_line(np, res)}; wall "
+        f"{probe['wall_s']:.3f} s; launches {probe['launches']} ({steps} "
+        f"stepper dispatches over {len(probe['place'])} placement calls, "
+        f"modes {sorted({tel['mode'] for *_, tel, _ in probe['place']})})")
+    if not summ["fleet_cost"] <= summ["max_fleet_cost"] + STOCH_GOLDEN_TOL:
+        raise AssertionError(f"stochastic full: {summ}")
+    numpy_s = plans_against_numpy(np, res, probe, "stochastic full")
+    start, end, w_all, x, Tp = probe["apply"]
+    B, n, m, D = w_all.shape
+    apply = apply_timing(torch, ref, cong, probe["apply"])
+    pool_err, mismatches = replay_dispatches(
+        torch, ref, kstep, probe["first"] + [probe["widest"]],
+        ["stochastic first", "stochastic widest"])
+    step = time_dispatch(torch, ref, kstep, *probe["widest"])
+    log(f"stochastic full: {len(probe['place'])} placement calls equal to the "
+        f"numpy lockstep engine's ({numpy_s:.3f} s), every scenario's plan "
+        f"and cost equal; last apply at B={B} n={n} m={m} D={D} T'={Tp} "
+        f"within rtol/atol {CONG_RTOL} of the plain version (max |err| "
+        f"{apply['max_abs_err']:.3g}); the first and the widest stepper "
+        f"dispatch bit-equal to the plain version (max |pool err| "
+        f"{pool_err}, {mismatches} differ)")
+    log(timing_line("congestion_lp (stochastic)", apply))
+    log(f"timing: congestion_lp (stochastic) launch shape {apply['plan']}")
+    log(f"timing: place_step widest wave (stochastic) at {step['shape']}: "
+        f"kernel {step['ms']:.6f} ms (device; {step['call_ms']:.6f} per "
+        f"wrapper call), plain {step['plain_ms']:.6f} (CUDA events), bound "
+        f"{step['bound_ms']:.3e} ({step['bound_by']}); smem_rows "
+        f"{step['smem_rows']}, spilled lanes {step['spilled_lanes']}")
+    wall = probe["wall_s"]
+    probe.clear()
+    log(f"stochastic full: fleet {summ['fleet']} (cost {summ['fleet_cost']}), "
+        f"expected-only {summ['expected_fleet']} (cost "
+        f"{summ['expected_fleet_cost']}), max fleet cost "
+        f"{summ['max_fleet_cost']}, mean scenario cost "
+        f"{summ['mean_scenario_cost']}; worst overload {summ['worst_overload']}"
+        f" against the expected-only fleet's "
+        f"{summ['expected_fleet_worst_overload']} (a reading); frontier:")
+    for row in summ["frontier"]:
+        log(f"stochastic full: frontier {row}")
+    t0 = time.perf_counter()
+    again = plan_stochastic(fc, config, engine=engine)
+    again_s = time.perf_counter() - t0
+    if again.summary() != summ:
+        raise AssertionError(
+            f"stochastic full: a second call differs: {again.summary()} vs "
+            f"{summ}")
+    log(f"stochastic full: a second call's summary() bit-equal "
+        f"({again_s:.3f} s)")
+    out["full"] = {"summary": summ, "timings": res.timings,
+                   "wall_s": wall, "again_s": again_s,
+                   "numpy_s": numpy_s, "apply": apply, "place_step": step,
+                   "iterations": res.stats[0].iterations.tolist()}
+    del res, again
+
+    # (b) the golden grid at its own width
+    gfc = gct_forecast(**STOCH_GOLDEN, **STOCH_CHANNELS)
+    gres, gprobe = probed_plan(torch, kernels, cong, kstep, engine,
+                               lambda: plan_stochastic(gfc, config,
+                                                       engine=engine))
+    check_plan_launches(gres, gprobe, "stochastic golden")
+    out["launches"]["golden"] = gprobe["launches"]
+    cur = gres.summary()
+    if not (cur["mean_scenario_cost"] <= cur["fleet_cost"] + STOCH_GOLDEN_TOL
+            and cur["fleet_cost"] <= cur["max_fleet_cost"] + STOCH_GOLDEN_TOL
+            and cur["worst_overload"] < cur["expected_fleet_worst_overload"]):
+        raise AssertionError(f"stochastic golden: invariants broken: {cur}")
+    golden = json.loads((HERE / "results" / "golden" /
+                         "stochastic.json").read_text())
+    same = [k for k in STOCH_PINNED
+            if close_to(cur[k], golden[k], STOCH_GOLDEN_TOL)]
+    rows = sum(close_to(a, b, STOCH_GOLDEN_TOL)
+               for a, b in zip(cur["frontier"], golden["frontier"]))
+    log(f"stochastic golden: {stochastic_line(np, gres)}; launches "
+        f"{gprobe['launches']}; mean scenario cost "
+        f"{cur['mean_scenario_cost']} <= fleet cost {cur['fleet_cost']} <= "
+        f"max {cur['max_fleet_cost']}; worst overload {cur['worst_overload']}"
+        f" < expected-only {cur['expected_fleet_worst_overload']}; reproduces "
+        f"{len(same)} of {len(STOCH_PINNED)} pinned fields and {rows} of "
+        f"{len(golden['frontier'])} frontier rows of the golden within "
+        f"{STOCH_GOLDEN_TOL} (a reading); apart: "
+        + ", ".join(f"{k} {cur[k]} vs {golden[k]}" for k in STOCH_PINNED
+                    if k not in same))
+    out["golden"] = {"summary": cur, "pinned_matched": same,
+                     "frontier_rows_matched": rows, "timings": gres.timings}
+    del gres, gprobe
+
+    # (c) degeneracy: every channel off, K = 1, Table-I instance 0
+    dfc = DemandForecast(base=fleet[0], load_sigma=0.0, diurnal_amp=0.0,
+                         burst_prob=0.0)
+    dres, dprobe = probed_plan(
+        torch, kernels, cong, kstep, engine,
+        lambda: plan_stochastic(dfc, StochasticConfig(scenarios=1,
+                                                      quantiles=2),
+                                engine=engine))
+    check_plan_launches(dres, dprobe, "stochastic degenerate")
+    out["launches"]["degenerate"] = dprobe["launches"]
+    point = engine.evaluate([fleet[0]]).entries[0]["costs"]["lp-map-f"]
+    if dres.scenario_costs[0] != point or dres.worst_overload != 0.0:
+        raise AssertionError(
+            f"stochastic degenerate: scenario cost {dres.scenario_costs[0]} "
+            f"vs evaluate's {point}")
+    log(f"stochastic degenerate: {stochastic_line(np, dres)}; K=1 "
+        f"zero-variance scenario cost {dres.scenario_costs[0]} equal to "
+        f"FleetEngine.evaluate's lp-map-f cost on Table-I instance 0; "
+        f"launches {dprobe['launches']}")
+    out["degenerate"] = {"cost": float(point)}
+    del dres, dprobe
+
+    # (d) preprovision on phase 11's warm-replayed service
+    name = svc.fleets[0]
+    st = svc._fleets[name]
+    before, sol = st.plan.copy(), st.solution
+    assign = sol.assign.copy()
+    n_events = len(svc.events)
+    pres, pprobe = probed_plan(torch, kernels, cong, kstep, svc.engine,
+                               lambda: svc.preprovision(name))
+    check_plan_launches(pres, pprobe, "preprovision")
+    out["launches"]["preprovision"] = pprobe["launches"]
+    after = st.plan
+    ev = svc.events[-1]
+    cost = float(after @ st.problem.node_types.cost)
+    if pres.K != 16 or not (after >= before).all() \
+            or len(svc.events) != n_events + 1 \
+            or ev.scope != "preprovision" or ev.fleet != name \
+            or ev.cost_after != cost or st.plan_cost != cost \
+            or st.solution is not sol \
+            or not np.array_equal(st.solution.assign, assign):
+        raise AssertionError(
+            f"preprovision {name}: plan {before} -> {after}, event {ev}")
+    log(f"preprovision {name}: {stochastic_line(np, pres)}; launches "
+        f"{pprobe['launches']}; plan {before.tolist()} -> {after.tolist()} "
+        f"(growth only), ScaleEvent cost {ev.cost_before} -> "
+        f"{ev.cost_after}; placement unchanged")
+    out["preprovision"] = {"fleet": name, "before": before.tolist(),
+                           "after": after.tolist(),
+                           "cost_before": ev.cost_before,
+                           "cost_after": ev.cost_after,
+                           "timings": pres.timings}
+    del pres, pprobe
+
+    # (e) the CLI on the jobs fleet, in the card configuration
+    argv = ["plan", "--scenarios", "16", "--lp-tol", "5e-3", "--lp-iters",
+            "4000", "--operator", "pallas", "--placement", "compiled"]
+    kernels.reset_launch_counts()
+    d0 = dispatch_count()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cres = cli.run(argv)
+    torch.cuda.synchronize()
+    cl = kernels.launch_counts()
+    # the point plan's LP solve, then the scenario group's one dispatch
+    if cres.lp_dispatches != 1 or dispatch_count() - d0 != 2 \
+            or cl["congestion_many"] <= 0 or cl["place_step"] <= 0:
+        raise AssertionError(
+            f"CLI plan --scenarios 16: lp_dispatches {cres.lp_dispatches}, "
+            f"dispatches {dispatch_count() - d0}, launches {cl}")
+    out["launches"]["cli"] = cl
+    head = [ln for ln in text.getvalue().splitlines()
+            if ln.startswith(("== ", "  robust", "  expected"))]
+    log(f"CLI {' '.join(argv)}: {stochastic_line(np, cres)}; launches {cl}; "
+        + " | ".join(head))
+    phase_s = time.perf_counter() - t_phase
+    log(f"stochastic: phase 12 took {phase_s:.1f} s")
+    out["phase_s"] = phase_s
+    report["stochastic"] = out
+    return {"launches": out["launches"], "apply": apply, "place_step": step,
+            "max_abs_err": apply["max_abs_err"]}
+
+
+def close_to(a, b, tol) -> bool:
+    """``benchmarks/check_stochastic.py``'s comparison: lists and dicts item
+    by item, floats within ``tol`` relative slack, the rest equal."""
+    if isinstance(a, list) or isinstance(b, list):
+        return (isinstance(a, list) and isinstance(b, list)
+                and len(a) == len(b)
+                and all(close_to(x, y, tol) for x, y in zip(a, b)))
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and a.keys() == b.keys()
+                and all(close_to(a[k], b[k], tol) for k in a))
+    if isinstance(a, float) or isinstance(b, float):
+        return abs(float(a) - float(b)) <= tol * max(1.0, abs(float(a)),
+                                                     abs(float(b)))
+    return a == b
 
 
 def walk_work(args, work) -> tuple[float, float]:
@@ -2356,6 +2753,19 @@ def main(argv=None) -> int:
     kinfo["congestion_lp"]["max_abs_err"] = max(
         kinfo["congestion_lp"]["max_abs_err"], serve["max_abs_err"])
 
+    # 12. stochastic planning, then preprovision on phase 11's service
+    stoch = stochastic_phase(torch, np, ref, kernels, cong, fleet,
+                             serve.pop("service"), report)
+    for name, key in (("congestion_many", "congestion_many"),
+                      ("congestion_lp", "congestion_many"),
+                      ("place_step", "place_step")):
+        kinfo[name]["phase12_launches"] = {
+            run: got[key] for run, got in stoch["launches"].items()}
+    kinfo["congestion_lp"]["max_abs_err"] = max(
+        kinfo["congestion_lp"]["max_abs_err"], stoch["max_abs_err"])
+    kinfo["congestion_lp"]["phase12_ms"] = stoch["apply"]["ms"]
+    kinfo["place_step"]["phase12_ms"] = stoch["place_step"]["ms"]
+
     # the congestion kernel's one counter counts both of its entries; the
     # main path launches it only through congestion_lp
     runs = {"congestion_many": launches["congestion_many"],
@@ -2378,7 +2788,9 @@ def main(argv=None) -> int:
                                               "tol_launches",
                                               "phase10_launches",
                                               "phase10_ms",
-                                              "phase11_launches")
+                                              "phase11_launches",
+                                              "phase12_launches",
+                                              "phase12_ms")
             if key in kinfo[name]}}
         for name in SOURCES]}
     report["kernels"] = kinfo

@@ -1,16 +1,21 @@
 """PyTorch/CUDA port of the TL-Rightsizing package (``repro``).
 
 The port mirrors the JAX package's layout and public names
-(``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.workload``) and
-imports neither JAX nor the JAX package.  Its kernels are hand-written CUDA
+(``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.workload``,
+``repro_torch.serve``, ``repro_torch.stochastic``, ``repro_torch.launch``)
+and imports neither JAX nor the JAX package.  Its kernels are hand-written CUDA
 for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.  Entry
 points run on the CUDA card unless given ``device="cpu"``, where every
 kernel is replaced by its plain PyTorch version.
 
 The port covers the fleet evaluation path (``FleetEngine.evaluate``: pack,
 the batched PDHG solve in legacy and tolerance mode, the placement engines),
-constraints and the feasibility oracle, the workloads, and the serving loop
-(``repro_torch.serve.RightsizingService``).
+constraints and the feasibility oracle, the workloads, the serving loop
+(``repro_torch.serve.RightsizingService``), stochastic planning
+(``repro_torch.stochastic.plan_stochastic``: a demand forecast fanned into K
+scenarios, solved in one dispatch by ``FleetEngine.solve_scenarios``, and a
+CVaR-selected fleet; ``RightsizingService.preprovision``) and the rightsizing
+CLI (``python -m repro_torch.launch.rightsize {plan,compare,fleet,serve}``).
 """
 
 from .core import (

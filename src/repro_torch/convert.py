@@ -5,9 +5,10 @@ from any object that has them as attributes (``dem``, ``start``, ``end``,
 ``T``, ``node_types.cap``/``node_types.cost`` and optional ``constraints``,
 such as a reference ``repro.core.Problem``), without importing the reference
 package; constraints come across as the port's own ``TaskConstraints``.
-``state_from_numpy`` builds a ``PDHGState`` from numpy iterates.  The tests
-use both to feed identical instances and iterates to the reference and to
-the port.
+``state_from_numpy`` builds a ``PDHGState`` from numpy iterates, and
+``forecast_from_reference`` a ``DemandForecast`` from another package's
+forecast.  The tests use them to feed identical instances, iterates and
+forecasts to the reference and to the port.
 
 A live serving loop needs no helper here: ``serve.snapshot`` reads and
 writes the reference's snapshot format (the same manifest, arrays, version
@@ -23,8 +24,10 @@ import numpy as np
 from .core.constraints import TaskConstraints
 from .core.lp_pdhg import PDHGState
 from .core.problem import NodeTypes, Problem
+from .stochastic.forecast import DemandForecast
 
-__all__ = ["problem_from_arrays", "constraints_from", "state_from_numpy"]
+__all__ = ["problem_from_arrays", "constraints_from", "state_from_numpy",
+           "forecast_from_reference"]
 
 
 def problem_from_arrays(dem, start=None, end=None, cap=None, cost=None,
@@ -81,3 +84,16 @@ def state_from_numpy(x, y, eta=None, omega=None) -> PDHGState:
         x=np.asarray(x, np.float32), y=np.asarray(y, np.float32),
         eta=None if eta is None else np.asarray(eta, np.float32),
         omega=None if omega is None else np.asarray(omega, np.float32))
+
+
+def forecast_from_reference(fc) -> DemandForecast:
+    """The port's ``DemandForecast`` for ``fc`` (any object with a ``base``
+    problem and the five channel attributes, such as a reference
+    ``repro.stochastic.DemandForecast``): the base comes across through
+    ``problem_from_arrays``, constraints included, and the channels as
+    they are."""
+    return DemandForecast(
+        base=problem_from_arrays(fc.base),
+        load_sigma=fc.load_sigma, diurnal_amp=fc.diurnal_amp,
+        burst_prob=fc.burst_prob, burst_alpha=fc.burst_alpha,
+        burst_cap=fc.burst_cap)

@@ -25,11 +25,11 @@ paper's §VI protocol over a fleet of instances on one device:
 
 Ported from ``repro.core.engine``.  Constrained instances are lowered
 (``core.constraints``) before packing, and ``place`` expands its solutions
-back to the original task rows.  What this port does not have yet raises
-``NotImplementedError`` naming the ROADMAP entry that brings it: a sweep
-pipeline sharded over more than one card (``SweepConfig(devices>1)``,
-"multi-card pipeline sharding") and scenario groups (``solve_scenarios``,
-Queue 1 item 11).
+back to the original task rows.  ``solve_scenarios`` solves a same-shape
+scenario group (``repro_torch.stochastic``) in one dispatch.  What this port
+does not have yet raises ``NotImplementedError`` naming the ROADMAP entry
+that brings it: a sweep pipeline sharded over more than one card
+(``SweepConfig(devices>1)``, "multi-card pipeline sharding").
 
 ``device`` (None = the CUDA card) is where the LP solve runs, where the
 ``kernel`` backend scores placements and where the compiled stepper keeps
@@ -71,11 +71,6 @@ _PLACEMENT_BACKENDS = ("numpy", "kernel")
 # Planner cost of one extra shape bucket, as a fraction of the
 # single-bucket padded cell count.
 DEFAULT_BUCKET_OVERHEAD = 0.03
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
 
 
 # --- typed configs ---------------------------------------------------------
@@ -769,8 +764,49 @@ class FleetEngine:
         return results, stats
 
     def solve_scenarios(self, problems, init: PDHGState | None = None):
-        """Same-shape scenario groups are ROADMAP Queue 1, item 11."""
-        raise _not_ported("solve_scenarios (scenario groups)", "11")
+        """Same-shape scenario group: ONE batched LP dispatch for K
+        instances sharing one trimmed ``(n, m, D, T')`` shape.
+
+        This is the Monte-Carlo fan-out entry (``repro_torch.stochastic``):
+        K scenario instances drawn from one demand forecast differ only in
+        their demand vectors, so they already share a padded shape; the
+        bucket planner has nothing to decide and every lane belongs in the
+        same dispatch.  The shape is validated eagerly (a mixed-shape group
+        raises, naming the shapes) and the planner is bypassed, so the
+        K-lane solve issues exactly one dispatch regardless of
+        ``SweepConfig.max_buckets`` (``shard_size`` still bounds the
+        dispatch if set).  Returns ``(results, stats)`` like :meth:`solve`.
+
+        >>> from repro_torch.workload import SyntheticSpec, synthetic_instance
+        >>> fleet = [synthetic_instance(SyntheticSpec(n=8, m=2, D=2,
+        ...                                           T=6, seed=0))] * 2
+        >>> eng = FleetEngine(solver=SolverConfig(tol=1e-2, iters=400),
+        ...                   device="cpu")
+        >>> results, stats = eng.solve_scenarios(fleet)
+        >>> len(results), results[0].mapping.shape
+        (2, (8,))
+        """
+        if self.sweep.warm_start is not None:
+            raise ValueError(
+                "solve_scenarios conflicts with SweepConfig.warm_start: "
+                "a scenario group is one same-shape batch solved in a "
+                "single dispatch, not a grid-adjacent sweep chain; use "
+                "a SweepConfig without warm_start")
+        trimmed = self._trimmed(problems)
+        if not trimmed:
+            raise ValueError("solve_scenarios needs at least one instance")
+        shapes = {(t.n, t.m, t.D, t.T) for t in trimmed}
+        if len(shapes) > 1:
+            raise ValueError(
+                f"solve_scenarios needs every trimmed instance on ONE "
+                f"(n, m, D, T') shape (that is what makes the group a "
+                f"single batched dispatch), got {sorted(shapes)}; fan "
+                f"scenarios out of one forecast base "
+                f"(repro.stochastic.fan_out) or pad them yourself")
+        batch = problems if isinstance(problems, ProblemBatch) \
+            else pack_problems(trimmed, assume_trimmed=True)
+        bucket = Bucket(indices=tuple(range(batch.B)), batch=batch)
+        return self._solve_bucket(bucket, init=init)
 
     def _trimmed(self, problems) -> list[Problem]:
         if isinstance(problems, ProblemBatch):

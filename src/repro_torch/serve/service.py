@@ -36,9 +36,10 @@ The loop is hardened for unattended operation:
     poisoning every subsequent tick; the rest of the tick's fleets are
     unaffected.  Requests are folded one at a time, so the poison item
     is identified exactly and already-folded prefixes still serve.
-  * **Pre-provisioning** — ``preprovision(fleet)`` needs the stochastic
-    layer, which is not ported yet: it raises ``NotImplementedError``
-    naming ROADMAP Queue 1 item 11.
+  * **Pre-provisioning** — ``preprovision(fleet)`` fans the fleet's
+    demand into K scenarios (``repro_torch.stochastic``, one batched
+    dispatch through the service's engine) and adopts the CVaR-selected
+    headroom, growth-only.
   * **Checkpointing** — ``snapshot(path)`` / ``restore(path, engine)``
     persist every fleet's state (including the warm ``PDHGState``
     chain), the pending queue, and the telemetry counters, so a
@@ -70,7 +71,7 @@ from ..core.checker import assert_feasible
 from ..core.constraints import (TaskConstraints, expand_solution,
                                 lower_constraints)
 from ..core.engine import (FleetEngine, SolverConfig, SweepConfig,
-                           _not_ported, plan_buckets)
+                           plan_buckets)
 from ..core.lp_pdhg import PDHGState
 from ..core.problem import Problem, trim_timeline
 from ..core.solution import Solution, verify
@@ -738,10 +739,41 @@ class RightsizingService:
     # -- stochastic pre-provisioning -----------------------------------
 
     def preprovision(self, fleet: str, forecast=None, config=None):
-        """Burst headroom through the stochastic layer (K-scenario fan-out
-        and CVaR selection), which is ROADMAP Queue 1 item 11."""
-        raise _not_ported("RightsizingService.preprovision (stochastic "
-                          "planning)", "11")
+        """Buy burst headroom ahead of demand: fan the fleet's current
+        task set (or a caller-supplied ``DemandForecast``) into K
+        scenarios, CVaR-select a robust fleet (``repro_torch.stochastic``,
+        one batched dispatch), and adopt ``max(current plan, robust)``.
+
+        Growth-only by design — releases stay owned by the flag-gated
+        scale-in loop, so pre-provisioning can never fight the cooldown
+        or payback checks.  The adoption is logged as a
+        ``scope='preprovision'`` ScaleEvent; the full
+        ``StochasticResult`` (frontier, per-scenario overloads) is
+        returned for telemetry.  The fleet's *current plan* anchors the
+        Eva-style reconfiguration term, so a ``config`` with
+        ``recfg_weight > 0`` biases selection toward fleets near what
+        is already deployed."""
+        from ..stochastic import (DemandForecast, StochasticConfig,
+                                  plan_stochastic)
+
+        st = self._fleets[fleet]
+        if forecast is None:
+            forecast = DemandForecast(base=st.problem)
+        if config is None:
+            config = StochasticConfig(scenarios=16)
+        current = (st.plan if st.plan is not None
+                   else np.zeros(st.problem.m, dtype=np.int64))
+        res = plan_stochastic(forecast, config, engine=self.engine,
+                              current_fleet=current)
+        adopted = np.maximum(current, res.fleet)
+        cost_before = st.plan_cost
+        st.plan = adopted
+        st.plan_cost = float(adopted @ st.problem.node_types.cost)
+        self.events.append(ScaleEvent(
+            tick=self._tick, fleet=fleet, scope="preprovision",
+            cost_before=cost_before, cost_after=st.plan_cost,
+            checks=()))
+        return res
 
     # -- checkpoint / recovery -----------------------------------------
 

@@ -26,7 +26,11 @@ fleet's plans on the card equal to the CPU's and clean under the oracle;
 the serving loop in the kernel configuration ticked to its end twice with
 bit-equal plans and reports (all but the wall-clock fields), every plan clean
 under the oracle and every tick's compiled placements equal to the numpy
-lockstep engine's.
+lockstep engine's; stochastic planning in the same configuration (one LP
+dispatch, 13 + the most iterations congestion launches, stepper launches =
+dispatches), its scenario plans and costs equal to the numpy lockstep
+engine's on the same LP mappings, two calls bit-equal, and ``preprovision``
+growing a served fleet's plan.
 """
 
 import numpy as np
@@ -696,3 +700,111 @@ def test_serving_loop_placements_equal_the_lockstep_engine(dev):
         for lane, (g, w) in enumerate(zip(sols, want)):
             assert np.array_equal(g.assign, w.assign), (tick, lane)
             assert np.array_equal(g.node_type, w.node_type), (tick, lane)
+
+
+def _card_engine():
+    from repro_torch.core import FleetEngine, PlacementConfig, SolverConfig
+
+    return FleetEngine(solver=SolverConfig(tol=5e-3, iters=4000,
+                                           operator="pallas"),
+                       placement=PlacementConfig(engine="compiled"),
+                       algos=("lp-map-f",))
+
+
+def _plan_on_the_card(K=8):
+    """``plan_stochastic`` on a small GCT-like forecast in the kernel
+    configuration, probed: the result, the LP results of its one
+    ``solve_scenarios`` call, each placement call's inputs, telemetry and
+    placements, and the launches of the run."""
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.stochastic import (StochasticConfig, gct_forecast,
+                                        plan_stochastic)
+
+    eng = _card_engine()
+    lp, calls = [], []
+    solve, place = eng.solve_scenarios, engine.place_many
+
+    def solved(problems):
+        out = solve(problems)
+        lp.append(out[0])
+        return out
+
+    def placed(batch, maps, **kw):
+        tel: dict = {}
+        sols = place(batch, maps, telemetry=tel, **kw)
+        calls.append((batch, maps, kw, tel, sols))
+        return sols
+
+    eng.solve_scenarios = solved
+    engine.place_many = placed
+    try:
+        kernels.reset_launch_counts()
+        res = plan_stochastic(
+            gct_forecast(n=60, m=4, seed=1, burst_prob=0.15),
+            StochasticConfig(scenarios=K, cvar_lambda=2.0), engine=eng)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        engine.place_many = place
+    return res, lp, calls, launches
+
+
+def test_stochastic_plan_on_the_card_launches_and_places_as_numpy(dev):
+    from repro_torch.core import place_many
+
+    res, lp, calls, launches = _plan_on_the_card()
+    s = res.summary()
+    assert res.lp_dispatches == 1 and res.buckets == 1 and len(lp) == 1
+    assert s["converged_frac"] == 1.0
+    assert launches["congestion_many"] == 13 + int(
+        res.stats[0].iterations.max())
+    dispatches = sum(tel["dispatches"] for *_, tel, _ in calls)
+    assert all(tel["engine"] == "compiled" for *_, tel, _ in calls)
+    assert launches["place_step"] == dispatches > 0
+    assert launches["fit_scores_many"] == launches["two_phase"] == 0
+    best = np.full(res.K, np.inf)
+    plans = np.zeros_like(res.scenario_plans)
+    for batch, maps, kw, _, sols in calls:
+        want = place_many(batch, maps, fit=kw["fit"], filling=kw["filling"],
+                          device="cpu")
+        for b, (g, w, t) in enumerate(zip(sols, want, batch.problems)):
+            assert np.array_equal(g.assign, w.assign), (kw, b)
+            assert np.array_equal(g.node_type, w.node_type), (kw, b)
+            if w.cost(t) < best[b]:
+                best[b], plans[b] = w.cost(t), w.nodes_per_type(t)
+    assert np.array_equal(best, res.scenario_costs)
+    assert np.array_equal(plans, res.scenario_plans)
+    assert s["mean_scenario_cost"] <= s["fleet_cost"] + 1e-6
+    assert s["fleet_cost"] <= s["max_fleet_cost"] + 1e-6
+
+
+def test_stochastic_plan_on_the_card_is_deterministic(dev):
+    a = _plan_on_the_card()[0]
+    b = _plan_on_the_card()[0]
+    assert a.summary() == b.summary()
+    assert np.array_equal(a.scenario_costs, b.scenario_costs)
+
+
+def test_preprovision_on_the_card(dev):
+    from repro_torch.core.batch import dispatch_count
+    from repro_torch.serve import RightsizingService, TraceSpec, gct_trace, \
+        replay
+    from repro_torch.stochastic import StochasticConfig
+
+    svc = RightsizingService(engine=_card_engine())
+    replay(svc, gct_trace(TraceSpec(fleets=2, requests=20, n0=60, m=5,
+                                    seed=3)), push_per_tick=6)
+    name = svc.fleets[0]
+    before = svc.fleet(name).plan.copy()
+    sol = svc._fleets[name].solution
+    d0 = dispatch_count()
+    res = svc.preprovision(name, config=StochasticConfig(scenarios=8))
+    assert dispatch_count() - d0 == 1 and res.lp_dispatches == 1
+    after = svc.fleet(name).plan
+    assert (after >= before).all()
+    assert svc._fleets[name].solution is sol
+    ev = svc.events[-1]
+    assert ev.scope == "preprovision" and ev.fleet == name
+    assert ev.cost_after == float(
+        after @ svc._fleets[name].problem.node_types.cost)

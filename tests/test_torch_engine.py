@@ -23,8 +23,8 @@ from repro.workload import sweep_specs as j_sweep_specs
 from repro.workload import synthetic_instance as j_synthetic_instance
 from repro_torch.convert import problem_from_arrays
 from repro_torch.core import (ALGORITHMS, FleetEngine, PlacementConfig,
-                              SolverConfig, SweepConfig, evaluate,
-                              rightsize, verify)
+                              SolverConfig, SweepConfig, dispatch_count,
+                              evaluate, rightsize, verify)
 from repro_torch.workload import (SyntheticSpec, sweep_specs,
                                   synthetic_batch, synthetic_instance)
 
@@ -144,8 +144,10 @@ def test_unported_options_raise():
                        match="multi-card pipeline sharding"):
         SweepConfig(warm_start=2, pipeline=True, devices=2)
     eng = FleetEngine(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.solve_scenarios(_small_fleet())
+    fleet = _small_fleet()
+    d0 = dispatch_count()
+    results, _ = eng.solve_scenarios([fleet[0]] * 3)
+    assert dispatch_count() - d0 == 1 and len(results) == 3
     assert ALGORITHMS == ("penalty-map", "penalty-map-f", "lp-map",
                           "lp-map-f")
 

@@ -40,10 +40,16 @@ def test_package_has_the_slice_modules():
                  "core/checker.py", "workload/gct.py", "workload/jobs.py",
                  "serve/__init__.py", "serve/config.py", "serve/queue.py",
                  "serve/scale.py", "serve/faults.py", "serve/service.py",
-                 "serve/snapshot.py", "serve/trace.py"):
+                 "serve/snapshot.py", "serve/trace.py",
+                 "stochastic/__init__.py", "stochastic/forecast.py",
+                 "stochastic/scenarios.py", "stochastic/select.py",
+                 "launch/__init__.py", "launch/rightsize.py"):
         assert name in rel, name
     for src in ("congestion.cu", "fit.cu", "place_step.cu"):
         assert (PKG / "kernels" / "csrc" / src).is_file(), src
+    from repro_torch import convert
+
+    assert callable(convert.forecast_from_reference)
 
 
 @pytest.mark.parametrize("path", MODULES + [REPO / "chip_smoke.py"],
@@ -97,7 +103,10 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                                   solve_lp_many, two_phase)
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
+    from repro_torch.launch import rightsize as cli
     from repro_torch.serve import RightsizingService
+    from repro_torch.stochastic import (StochasticConfig, gct_forecast,
+                                        plan_stochastic)
     from repro_torch.workload import SyntheticSpec, synthetic_instance
 
     RightsizingService(device="cpu").snapshot(str(tmp_path))
@@ -114,6 +123,10 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         lambda: resolve_device("cuda"),
         lambda: RightsizingService(),
         lambda: RightsizingService.restore(str(tmp_path)),
+        lambda: plan_stochastic(gct_forecast(n=12, m=3),
+                                StochasticConfig(scenarios=2)),
+        lambda: cli.run(["plan", "--scenarios", "2"]),
+        lambda: cli.run(["compare"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -122,3 +135,36 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     assert len(FleetEngine(device="cpu").evaluate([p]).entries) == 1
     assert RightsizingService.restore(str(tmp_path),
                                       device="cpu").fleets == ()
+    assert plan_stochastic(gct_forecast(n=12, m=3),
+                           StochasticConfig(scenarios=2),
+                           device="cpu").lp_dispatches == 1
+
+
+def test_kernel_build_failure_propagates_out_of_plan_stochastic(monkeypatch):
+    """No fallback: a congestion kernel that fails to build stops
+    ``plan_stochastic``, and its plain version never runs in its place."""
+    from repro_torch.core import FleetEngine, SolverConfig
+    from repro_torch.kernels import build, congestion, ref
+    from repro_torch.stochastic import (StochasticConfig, gct_forecast,
+                                        plan_stochastic)
+
+    plain = []
+    orig = ref.congestion_lp_ref
+
+    def spy(*args, **kwargs):
+        plain.append("congestion_lp_ref")
+        return orig(*args, **kwargs)
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    engine = FleetEngine(solver=SolverConfig(tol=5e-3, iters=4000,
+                                             operator="pallas"),
+                         algos=("lp-map-f",), device="cpu")
+    monkeypatch.setattr(ref, "congestion_lp_ref", spy)
+    monkeypatch.setattr(congestion, "_on_card", lambda *t: True)
+    monkeypatch.setattr(build, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed building congestion"):
+        plan_stochastic(gct_forecast(n=12, m=3),
+                        StochasticConfig(scenarios=2), engine=engine)
+    assert plain == []

@@ -24,8 +24,8 @@ What is held, and how closely:
     reference's, and the lanes, plans and events that differ held at
     their readings;
   * the rest of the service on the port alone: retry and quarantine,
-    shedding, deadline misses, a ``constrain`` request, ``preprovision``
-    (not ported), the reference's latent ``_lane_init`` fault, and errors
+    shedding, deadline misses, a ``constrain`` request, ``preprovision``,
+    the reference's latent ``_lane_init`` fault, and errors
     of the engine propagating out of ``tick`` instead of quarantining or
     falling back to a plain version.
 """
@@ -41,6 +41,7 @@ import repro.core as J
 import repro.serve as JS
 import repro_torch.core as P
 import repro_torch.serve as PS
+import repro_torch.stochastic as PST
 from repro.core.checker import check_plan as ref_check_plan
 from repro_torch.core import check_plan
 
@@ -638,12 +639,22 @@ def test_constrain_request_plan_passes_the_oracle():
     assert ref_check_plan(st.problem, sol) == []
 
 
-def test_preprovision_names_roadmap_item_11():
+def test_preprovision_grows_the_plan_and_logs_its_event():
     svc = _service(shape_quantum=4)
     svc.submit(_admit(PS, "gpu", n=8, seed=3)[1])
     svc.tick()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        svc.preprovision("gpu")
+    before = svc.fleet("gpu").plan.copy()
+    n_events = len(svc.events)
+    res = svc.preprovision("gpu", config=PST.StochasticConfig(scenarios=4,
+                                                              quantiles=3))
+    after = svc.fleet("gpu").plan
+    assert res.K == 4 and res.lp_dispatches == 1
+    assert (after >= before).all()
+    assert len(svc.events) == n_events + 1
+    ev = svc.events[-1]
+    assert ev.scope == "preprovision" and ev.fleet == "gpu"
+    assert ev.cost_after == pytest.approx(
+        float(after @ svc._fleets["gpu"].problem.node_types.cost))
 
 
 def _spy(monkeypatch, module, name):
