@@ -166,6 +166,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    --placement compiled`` on the jobs fleet: the point plan's LP and one
    scenario dispatch, launches counted.  The kernels line carries each
    run's phase-12 launches.
+13. the LM serving path, which runs no kernel of the repo (the reference's
+   attention is plain JAX, ported as plain PyTorch).  (a) ``gemma2-9b`` at
+   full width in bf16 (9.241 B parameters from a seeded generator on the
+   card) through ``launch.serve``'s ``make_batch`` and ``generate``: batch
+   4, a 4100-token prompt (past the 4096 window, so every local ring wraps),
+   16 greedy tokens, twice (cold, warm; the same ids), every logit finite;
+   prefill tok/s, decode ms/step, peak memory and the ids of row 0 printed,
+   then three decode steps and one prefill under marker-checked profiles
+   (kernels, busy ms, idle share, the costliest kernels) beside their bounds
+   (prefill: its matmul operations at the bf16 peak; a decode step: every
+   weight and filled cache entry read once).  (b) the same model in float32,
+   batch 1: prefill 4100 tokens, decode 8 greedy tokens; at steps 0, 3 and 7
+   the logits within 5e-3 of a fresh prefill of the same tokens.  (c) the
+   ten architectures' smoke configs in float32 with local windows of 8 (below
+   the 12-token prompt): one model run on the CPU, then moved to the card,
+   prefill and 4 decode steps on the same tokens; logits and decode states
+   within 1e-4, every MoE dispatch's slots and kept flags equal.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -177,6 +194,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import pathlib
 import re
@@ -2381,6 +2399,227 @@ def fit1_timing(torch, np, ref, fit, p0, dev, edge_err) -> dict:
     }
 
 
+# --- phase 13: the LM serving path -------------------------------------------
+
+LM_ARCH = "gemma2-9b"            # repro.launch.serve's default --arch
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 4100, 16  # the prompt passes the 4096 window
+LM_PARITY_AT = (0, 3, 7)         # 13b: decode steps held against a prefill
+LM_PARITY_ATOL = 5e-3            # tests/test_archs.py test_prefill_decode_parity
+LM_CARD_ATOL = 1e-4              # 13c: the card against the port's CPU run
+PEAK_BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
+
+
+def lm_bounds(model, cfg, B: int, S: int) -> dict:
+    """Least times (ms) of one prefill of B x S tokens and of the decode
+    step after it, from the shapes.  Prefill: the matmul operations (two per
+    weight per token, the unembedding on the last token only, and QK and PV
+    over the query/key pairs the causal and window masks keep) at the bf16
+    peak.  Decode step: every parameter read once (the unembedding reads the
+    whole table) and every filled cache entry read once, at the memory
+    rate."""
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = cfg.vocab_size * cfg.d_model
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pairs = 0
+    filled = 0
+    for kind, window, _t, _m in cfg.pattern:
+        w = S if window < 0 else min(window, S)
+        pairs += sum(min(i + 1, w) for i in range(S))
+        filled += min(S + 1, w if window > 0 else S + 1)
+    flops = (2.0 * (n_params - n_embed) * B * S + 2.0 * n_embed * B
+             + 4.0 * B * H * hd * pairs)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    elt = next(model.parameters()).element_size()
+    kv_bytes = 2.0 * B * filled * KV * hd * elt
+    return {"prefill_ms": flops / PEAK_BF16_FLOPS * 1e3,
+            "prefill_flops": flops,
+            "decode_ms": (weight_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3,
+            "decode_bytes": weight_bytes + kv_bytes,
+            "decode_weight_bytes": float(weight_bytes),
+            "decode_kv_bytes": kv_bytes}
+
+
+def lm_serve_full(torch, report) -> dict:
+    """13a: gemma2-9b at full width in bf16 through ``launch.serve``'s own
+    functions: B = 4, a 4100-token prompt, 16 greedy tokens, twice (the
+    first call warms cuBLAS); then three profiled decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(gen, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = torch.cuda.memory_allocated() - base
+    log(f"lm: {cfg.name} bf16 {n_params} parameters ({weights / 1e9:.3f} GB "
+        f"on the card; {base / 1e9:.3f} GB held by earlier phases) "
+        f"initialized in {init_s:.2f} s")
+    batch = lm_serve.make_batch(cfg, LM_BATCH, LM_PROMPT, gen)
+    runs = []
+    for call in ("cold", "warm"):
+        ids, info = lm_serve.generate(model, batch, LM_GEN)
+        if not info["finite"]:
+            raise AssertionError(f"13a {call}: non-finite logits")
+        if tuple(ids.shape) != (LM_BATCH, LM_GEN) or not bool(
+                ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+            raise AssertionError(f"13a {call}: ids {tuple(ids.shape)} out "
+                                 f"of range")
+        run = {"call": call, "prefill_s": info["prefill_s"],
+               "decode_s": info["decode_s"], "steps": info["steps"],
+               "prefill_tok_s": LM_BATCH * LM_PROMPT / info["prefill_s"],
+               "decode_ms_step": info["decode_s"] / info["steps"] * 1e3,
+               "ids_row0": ids[0].tolist()}
+        runs.append(run)
+        log(f"lm 13a {call}: prefill batch={LM_BATCH} len={LM_PROMPT} "
+            f"{run['prefill_s']:.3f} s ({run['prefill_tok_s']:.1f} tok/s); "
+            f"decode {run['steps']} steps {run['decode_s']:.3f} s "
+            f"({run['decode_ms_step']:.3f} ms/step); generated ids (row 0) "
+            f"{run['ids_row0']}")
+    if runs[0]["ids_row0"] != runs[1]["ids_row0"]:
+        raise AssertionError("13a: two greedy calls generated other ids")
+    peak = torch.cuda.max_memory_allocated()
+    # three decode steps under a marker-checked profile: device kernels and
+    # busy time per step, beside the host's wall per step
+    _logits, state = prefill(model, batch, max_len=LM_PROMPT + 4)
+    tokens = batch["tokens"][:, -1]
+    steps = [state]
+
+    def step():
+        steps[0] = decode_step(model, steps[0], tokens)[1]
+
+    evs = fn_events(torch, step, reps=3, warmup=0)
+    del state, steps, _logits
+    # and one prefill
+    evs_p = fn_events(torch, lambda: prefill(model, batch, LM_PROMPT + 4),
+                      reps=1, warmup=0)
+    bounds = lm_bounds(model, cfg, LM_BATCH, LM_PROMPT)
+    warm = runs[1]
+    profiled = {}
+    for what, ev, reps, wall_ms in (
+            ("decode step", evs, 3, warm["decode_ms_step"]),
+            ("prefill", evs_p, 1, warm["prefill_s"] * 1e3)):
+        busy_ms = sum(d for _, d in ev) * 1e3 / reps
+        top = collections.Counter()
+        for name, d in ev:
+            top[name[:80]] += d * 1e3 / reps
+        profiled[what] = {"kernels": len(ev) / reps, "busy_ms": busy_ms,
+                          "idle_share": 1.0 - busy_ms / wall_ms,
+                          "top_ms": dict(top.most_common(8))}
+        log(f"lm 13a: a {what} puts {len(ev) / reps:.1f} kernels and copies "
+            f"on the card, {busy_ms:.3f} ms busy of {wall_ms:.3f} ms (idle "
+            f"share {1.0 - busy_ms / wall_ms:.4f})")
+        for name, ms in top.most_common(8):
+            log(f"lm 13a: {what} device ms {ms:.4f}  {name}")
+    log(f"lm 13a: peak memory {peak / 1e9:.3f} GB "
+        f"(torch.cuda.max_memory_allocated; {(peak - base) / 1e9:.3f} GB "
+        f"above what earlier phases hold); bounds: prefill "
+        f"{bounds['prefill_ms']:.3f} ms ({bounds['prefill_flops']:.4g} "
+        f"operations at the bf16 peak), decode step "
+        f"{bounds['decode_ms']:.3f} ms ({bounds['decode_bytes'] / 1e9:.3f} "
+        f"GB at the memory rate)")
+    out = {"arch": cfg.name, "params": n_params, "init_s": init_s,
+           "weight_bytes": weights, "peak_bytes": peak,
+           "earlier_phases_bytes": base, "runs": runs,
+           "profiled": profiled, "bounds": bounds, "card": report["card"]}
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_consistency_f32(torch) -> dict:
+    """13b: gemma2-9b at full width in float32, batch 1: prefill 4100
+    tokens, decode 8 greedy tokens, and at LM_PARITY_AT hold the decode
+    logits against a fresh prefill of the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    model = init_params(gen, cfg, dev)
+    seq = torch.randint(0, cfg.vocab_size, (1, LM_PROMPT), generator=gen,
+                        device=dev)
+    steps = max(LM_PARITY_AT) + 1
+    logits, state = prefill(model, {"tokens": seq}, max_len=LM_PROMPT + steps)
+    tok = torch.argmax(logits, dim=-1)
+    errs = {}
+    for j in range(steps):
+        logits, state = decode_step(model, state, tok)
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        if j in LM_PARITY_AT:
+            fresh, _ = prefill(model, {"tokens": seq}, max_len=seq.shape[1])
+            errs[j] = float((logits - fresh).abs().max())
+            log(f"lm 13b: decode step {j} (position {LM_PROMPT + j}) against "
+                f"a fresh prefill of {seq.shape[1]} tokens: max |diff| "
+                f"{errs[j]:.3e}")
+            if not errs[j] <= LM_PARITY_ATOL:
+                raise AssertionError(f"13b: decode step {j} differs from a "
+                                     f"fresh prefill by {errs[j]}")
+            del fresh
+        tok = torch.argmax(logits, dim=-1)
+    del model, state, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "atol": LM_PARITY_ATOL}
+
+
+def lm_archs_card_vs_cpu(torch) -> dict:
+    """13c: every architecture's smoke config in float32 (local windows
+    cut below the prompt), one model run on the CPU and then moved to the
+    card (``tests/_torch_lm_card.py``, which the card tests share): logits,
+    states and MoE routing must agree."""
+    sys.path.append(str(HERE / "tests"))
+    from _torch_lm_card import card_vs_cpu
+
+    from repro_torch.configs import ARCHS
+
+    out = {}
+    for arch in sorted(ARCHS):
+        r = card_vs_cpu(arch, torch.device("cuda"))
+        log(f"lm 13c {arch}: card vs CPU max |diff| logits {r['logits']:.3e}, "
+            f"states {r['states']:.3e}; MoE dispatches {r['moe_dispatches']} "
+            f"(slots equal: {r['moe_equal']}, dropped {r['dropped']})")
+        if not (r["logits"] <= LM_CARD_ATOL and r["states"] <= LM_CARD_ATOL):
+            raise AssertionError(f"13c {arch}: card vs CPU logits "
+                                 f"{r['logits']}, states {r['states']}")
+        if not r["ints_equal"]:
+            raise AssertionError(f"13c {arch}: slot positions differ")
+        if not r["moe_equal"]:
+            raise AssertionError(f"13c {arch}: MoE routing differs")
+        out[arch] = {k: r[k] for k in ("logits", "states", "moe_dispatches",
+                                       "dropped")}
+    return out
+
+
+def lm_phase(torch, report) -> dict:
+    """Phase 13: the LM serving path (13a bf16 serving, 13b f32
+    prefill/decode consistency, 13c every architecture card vs CPU)."""
+    t_phase = time.perf_counter()
+    out = {"serve": lm_serve_full(torch, report)}
+    t_b = time.perf_counter()
+    out["consistency"] = lm_consistency_f32(torch)
+    t_c = time.perf_counter()
+    out["archs"] = lm_archs_card_vs_cpu(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"lm: phase 13 took {out['phase_s']:.1f} s (13a {t_b - t_phase:.1f} "
+        f"s, 13b {t_c - t_b:.1f} s, 13c {time.perf_counter() - t_c:.1f} s)")
+    report["lm"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -2765,6 +3004,9 @@ def main(argv=None) -> int:
         kinfo["congestion_lp"]["max_abs_err"], stoch["max_abs_err"])
     kinfo["congestion_lp"]["phase12_ms"] = stoch["apply"]["ms"]
     kinfo["place_step"]["phase12_ms"] = stoch["place_step"]["ms"]
+
+    # 13. the LM serving path (no kernel of its own)
+    lm_phase(torch, report)
 
     # the congestion kernel's one counter counts both of its entries; the
     # main path launches it only through congestion_lp

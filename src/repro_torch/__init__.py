@@ -2,7 +2,8 @@
 
 The port mirrors the JAX package's layout and public names
 (``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.workload``,
-``repro_torch.serve``, ``repro_torch.stochastic``, ``repro_torch.launch``)
+``repro_torch.serve``, ``repro_torch.stochastic``, ``repro_torch.models``,
+``repro_torch.configs``, ``repro_torch.launch``)
 and imports neither JAX nor the JAX package.  Its kernels are hand-written CUDA
 for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.  Entry
 points run on the CUDA card unless given ``device="cpu"``, where every
@@ -14,8 +15,10 @@ constraints and the feasibility oracle, the workloads, the serving loop
 (``repro_torch.serve.RightsizingService``), stochastic planning
 (``repro_torch.stochastic.plan_stochastic``: a demand forecast fanned into K
 scenarios, solved in one dispatch by ``FleetEngine.solve_scenarios``, and a
-CVaR-selected fleet; ``RightsizingService.preprovision``) and the rightsizing
-CLI (``python -m repro_torch.launch.rightsize {plan,compare,fleet,serve}``).
+CVaR-selected fleet; ``RightsizingService.preprovision``), the rightsizing
+CLI (``python -m repro_torch.launch.rightsize {plan,compare,fleet,serve}``)
+and the LM substrate's serving path (``repro_torch.models``,
+``repro_torch.configs``, ``python -m repro_torch.launch.serve``).
 """
 
 from .core import (

@@ -15,19 +15,32 @@ writes the reference's snapshot format (the same manifest, arrays, version
 and checksum), so a reference ``RightsizingService.snapshot(path)`` restores
 in the port with ``repro_torch.serve.RightsizingService.restore(path)``,
 warm states bit for bit, and the other way round.
+
+``params_from_reference`` builds the port's LM ``Model`` from the
+reference's ``init_params`` pytree, and ``decode_state_from_reference`` the
+port's decode state from the reference's ``prefill``/``init_decode_state``
+state, both given as numpy arrays (``jax.tree.map(np.asarray, tree)``).  The
+reference stacks each sub-block of a segment along a leading ``repeats``
+axis; repeat r of sub-block j in the segment starting at layer o is the
+port's layer o + r * len(unit) + j (``segment_layers``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.constraints import TaskConstraints
 from .core.lp_pdhg import PDHGState
 from .core.problem import NodeTypes, Problem
+from .device import resolve_device
+from .models.config import ModelConfig, build_segments
+from .models.model import Model
 from .stochastic.forecast import DemandForecast
 
 __all__ = ["problem_from_arrays", "constraints_from", "state_from_numpy",
-           "forecast_from_reference"]
+           "forecast_from_reference", "segment_layers",
+           "params_from_reference", "decode_state_from_reference"]
 
 
 def problem_from_arrays(dem, start=None, end=None, cap=None, cost=None,
@@ -97,3 +110,70 @@ def forecast_from_reference(fc) -> DemandForecast:
         load_sigma=fc.load_sigma, diurnal_amp=fc.diurnal_amp,
         burst_prob=fc.burst_prob, burst_alpha=fc.burst_alpha,
         burst_cap=fc.burst_cap)
+
+
+def segment_layers(cfg: ModelConfig):
+    """(layer, segment, repeat, sub-block) for every layer of ``cfg``, in
+    the reference's stacking order: repeat r of sub-block j in the segment
+    starting at layer o is layer o + r * len(unit) + j."""
+    out, o = [], 0
+    for si, seg in enumerate(build_segments(cfg)):
+        for r in range(seg.repeats):
+            for j in range(len(seg.unit)):
+                out.append((o + r * len(seg.unit) + j, si, r, j))
+        o += seg.layers
+    return out
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included) as a tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.tensor(a, device=device)  # a copy: decode writes it
+
+
+def _flat(tree: dict, prefix: str = ""):
+    """(dotted name, leaf) of a nested dict, the port's parameter names."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flat(val, f"{prefix}{key}.")
+        else:
+            yield prefix + key, val
+
+
+def params_from_reference(params: dict, cfg: ModelConfig,
+                          device=None) -> Model:
+    """The port's ``Model`` holding the reference's parameters ``params``
+    (its ``init_params`` pytree as numpy arrays) on ``device`` (None = the
+    CUDA card).  Every parameter of the model is set, and every leaf used
+    (``load_state_dict(strict=True)``)."""
+    dev = resolve_device(device)
+    sd = {"embed": params["embed"], "final_norm": params["final_norm"]}
+    for layer, si, r, j in segment_layers(cfg):
+        for name, leaf in _flat(params["segments"][si][j]):
+            sd[f"layers.{layer}.{name}"] = np.asarray(leaf)[r]
+    if cfg.encoder_layers:
+        enc = params["encoder"]
+        sd["encoder.final_norm"] = enc["final_norm"]
+        for i in range(cfg.encoder_layers):
+            for name, leaf in _flat(enc["blocks"]):
+                sd[f"encoder.blocks.{i}.{name}"] = np.asarray(leaf)[i]
+    model = Model(cfg, dev)
+    model.load_state_dict({k: _tensor(v, dev) for k, v in sd.items()},
+                          strict=True)
+    return model
+
+
+def decode_state_from_reference(state: dict, cfg: ModelConfig,
+                                device=None) -> dict:
+    """The port's decode state (one cache dict per layer, ``pos`` an int)
+    from the reference's (per-segment, per-sub-block caches stacked along
+    ``repeats``), as numpy arrays, on ``device`` (None = the CUDA card)."""
+    dev = resolve_device(device)
+    caches = [None] * cfg.num_layers
+    for layer, si, r, j in segment_layers(cfg):
+        caches[layer] = {k: _tensor(np.asarray(v)[r], dev)
+                         for k, v in state["caches"][si][j].items()}
+    return {"caches": caches, "pos": int(np.asarray(state["pos"]))}

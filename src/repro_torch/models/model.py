@@ -1,0 +1,249 @@
+"""Model assembly: prefill and single-token decode.
+
+Ported from ``repro.models.model``.  The reference stacks the sub-blocks of
+each repeated-unit segment and scans them; the port holds one module per
+layer in layer order (``Model.layers``) and runs them one after another,
+which computes the same thing.  A decode state is
+``{"caches": [one dict per layer], "pos": int}``.  ``forward_train`` and
+``loss_fn`` belong to the training path and are not ported here.
+
+Every entry point runs under ``torch.no_grad()``; ``Model(cfg)`` and
+``init_params`` place the parameters on the CUDA card unless given a device.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from . import blocks as blocks_mod
+from .config import GLOBAL_WINDOW, ModelConfig, SubBlock, torch_dtype
+from .layers import init_dense, rms_norm, softcap
+
+__all__ = [
+    "Model",
+    "init_params",
+    "prefill",
+    "decode_step",
+    "init_decode_state",
+    "sub_cache_len",
+]
+
+
+def sub_cache_len(sub: SubBlock, max_len: int) -> int:
+    """KV-cache length of one sub-block: full context for global attention,
+    the window for sliding-window layers, 1 slot (unused) for stateful
+    recurrent kinds."""
+    if sub.kind in ("attn", "xattn"):
+        return max_len if sub.window == GLOBAL_WINDOW \
+            else min(sub.window, max_len)
+    return 1
+
+
+class Encoder(nn.Module):
+    """Bidirectional encoder of an encoder-decoder model: ``blocks`` (global
+    attention + MLP, one per encoder layer) and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        sub = SubBlock("attn", GLOBAL_WINDOW, cfg.rope_theta, False)
+        self.blocks = nn.ModuleList(
+            blocks_mod.init_block(cfg, sub, dtype, device)
+            for _ in range(cfg.encoder_layers))
+        self.final_norm = nn.Parameter(
+            torch.empty((cfg.d_model,), dtype=dtype, device=device))
+
+
+class Model(nn.Module):
+    """The LM: token embedding (V, d), tied as the unembedding; the layers
+    in layer order; the final norm; and, for encoder-decoder configs, the
+    encoder.  Parameters are allocated uninitialized on ``device`` (None =
+    the CUDA card); ``init_params`` initializes them from a generator."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        dtype = torch_dtype(cfg)
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.empty(
+            (cfg.vocab_size, cfg.d_model), dtype=dtype, device=dev))
+        self.final_norm = nn.Parameter(
+            torch.empty((cfg.d_model,), dtype=dtype, device=dev))
+        self.layers = nn.ModuleList(
+            blocks_mod.init_block(cfg, SubBlock(*entry), dtype, dev)
+            for entry in cfg.pattern)
+        self.encoder = Encoder(cfg, dtype, dev) if cfg.encoder_layers \
+            else None
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        """The reference's ``init_params`` scales: the embedding N(0, 1/d)
+        truncated at two standard deviations (re-scaled by sqrt(d) at
+        lookup), norms at zero, dense weights at fan_in ** -0.5."""
+        cfg = self.cfg
+        self.embed.copy_(init_dense(generator, tuple(self.embed.shape),
+                                    self.embed.dtype,
+                                    scale=cfg.d_model ** -0.5))
+        self.final_norm.zero_()
+        for block in self.layers:
+            block.reset_parameters(generator)
+        if self.encoder is not None:
+            for block in self.encoder.blocks:
+                block.reset_parameters(generator)
+            self.encoder.final_norm.zero_()
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device=None) -> Model:
+    """A ``Model`` of ``cfg`` on ``device`` (None = the CUDA card),
+    initialized from ``generator``, which must live on that device."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"the generator is on {generator.device}, the "
+                         f"parameters go to {dev}")
+    model = Model(cfg, dev)
+    model.reset_parameters(generator)
+    return model
+
+
+def _embed_tokens(model: Model, tokens):
+    x = model.embed[tokens]  # (B, S, d) gather
+    # the scale is rounded to the model dtype first, as the reference's
+    # jnp.asarray(d ** 0.5, x.dtype); the product of two values of that
+    # dtype is exact in float32 and rounded once, as there
+    scale = float(torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype))
+    return x * scale
+
+
+def _input_embeddings(model: Model, batch):
+    x = _embed_tokens(model, batch["tokens"])
+    if model.cfg.vision_seq and "vision" in batch:
+        # stub multimodal frontend: precomputed patch embeddings replace
+        # the first vision_seq positions
+        v = batch["vision"].to(x.dtype)
+        x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
+    return x
+
+
+@torch.no_grad()
+def _run_encoder(frames, model: Model):
+    """Bidirectional encoder over precomputed frame embeddings (stub
+    frontend): (B, Se, d) -> (B, Se, d)."""
+    Se = frames.shape[1]
+    positions = torch.arange(Se, dtype=torch.int32,
+                             device=frames.device)[None, :]
+    x = frames
+    for block in model.encoder.blocks:
+        x, _a, _st = block(x, positions=positions, causal=False)
+    return rms_norm(x, model.encoder.final_norm)
+
+
+def _logits(model: Model, x):
+    """(..., d) final hidden -> float32 soft-capped logits: the product in
+    the model dtype, then cast, as the reference."""
+    logits = (x @ model.embed.T).float()
+    return softcap(logits, model.cfg.logit_softcap)
+
+
+def _cross_kv(block, enc_out):
+    """One cross-attention layer's K/V from the encoder output."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, block.xattn.wk)
+    v = torch.einsum("bsd,dhk->bshk", enc_out, block.xattn.wv)
+    return k, v
+
+
+@torch.no_grad()
+def init_decode_state(model: Model, batch: int, max_len: int,
+                      enc_out=None) -> dict:
+    """Decode state: one cache per layer (+ cross K/V for enc-dec
+    models), at position 0."""
+    cfg = model.cfg
+    dtype, dev = torch_dtype(cfg), model.device
+    caches = []
+    for block in model.layers:
+        sub = block.sub
+        cache = blocks_mod.init_block_cache(
+            cfg, sub.kind, batch, sub_cache_len(sub, max_len), dtype, dev)
+        if sub.kind == "xattn":
+            if enc_out is not None:
+                cache["xk"], cache["xv"] = _cross_kv(block, enc_out)
+            else:
+                shape = (batch, cfg.encoder_seq, cfg.num_kv_heads,
+                         cfg.head_dim)
+                cache["xk"] = torch.zeros(shape, dtype=dtype, device=dev)
+                cache["xv"] = torch.zeros(shape, dtype=dtype, device=dev)
+        caches.append(cache)
+    return {"caches": caches, "pos": 0}
+
+
+@torch.no_grad()
+def decode_step(model: Model, state, tokens):
+    """One token for the whole batch.  tokens: (B,) integers.
+    Returns (logits (B, V) float32, new state).  The attention caches of
+    ``state`` are written in place, so the state passed in is consumed."""
+    pos = int(state["pos"])
+    x = _embed_tokens(model, tokens[:, None])[:, 0]  # (B, d)
+    caches = []
+    for block, cache in zip(model.layers, state["caches"]):
+        x, cache = block.decode(x, cache, pos)
+        caches.append(cache)
+    x = rms_norm(x, model.final_norm)
+    return _logits(model, x), {"caches": caches, "pos": pos + 1}
+
+
+def _format_attn_cache(kv, sub: SubBlock, cfg: ModelConfig, S: int,
+                       max_len: int, dtype):
+    """Pack full-sequence K/V into ring-buffer cache layout: entry for
+    position p lives at slot p % cache_len."""
+    k_full, v_full = kv
+    B, dev = k_full.shape[0], k_full.device
+    cl = sub_cache_len(sub, max_len)
+    take = min(S, cl)
+    pos_tail = torch.arange(S - take, S, dtype=torch.int32, device=dev)
+    slots = torch.remainder(pos_tail, cl).long()
+    shape = (B, cl, cfg.num_kv_heads, cfg.head_dim)
+    kc = torch.zeros(shape, dtype=dtype, device=dev)
+    vc = torch.zeros(shape, dtype=dtype, device=dev)
+    kc[:, slots] = k_full[:, S - take:].to(dtype)
+    vc[:, slots] = v_full[:, S - take:].to(dtype)
+    sp = torch.full((cl,), -1, dtype=torch.int32, device=dev)
+    sp[slots] = pos_tail
+    return {"k": kc, "v": vc, "slot_pos": sp}
+
+
+@torch.no_grad()
+def prefill(model: Model, batch, max_len: int):
+    """Full-sequence prefill: returns (last-token logits (B, V), state).
+
+    Runs the full-sequence forward (streaming attention) while extracting
+    per-layer decode state: ring-buffer K/V for attention layers, final
+    recurrent state for rglru/rwkv layers.  ``batch`` holds "tokens" (B, S)
+    and, as the config needs, "frames", "vision" and "mrope_positions".
+    """
+    cfg = model.cfg
+    B, S = batch["tokens"].shape
+    x = _input_embeddings(model, batch)
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = _run_encoder(batch["frames"].to(x.dtype), model)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None, :].expand(B, S)
+    mrope_positions = batch.get("mrope_positions")
+    dtype = torch_dtype(cfg)
+    caches = []
+    for block in model.layers:
+        sub = block.sub
+        x, _a, st = block(x, positions=positions, causal=True,
+                          enc_out=enc_out, mrope_positions=mrope_positions)
+        if sub.kind in ("attn", "xattn"):
+            st = _format_attn_cache(st, sub, cfg, S, max_len, dtype)
+            if sub.kind == "xattn":
+                st["xk"], st["xv"] = _cross_kv(block, enc_out)
+        caches.append(st)
+    x = rms_norm(x, model.final_norm)
+    return _logits(model, x[:, -1]), {"caches": caches, "pos": S}

@@ -30,7 +30,12 @@ lockstep engine's; stochastic planning in the same configuration (one LP
 dispatch, 13 + the most iterations congestion launches, stepper launches =
 dispatches), its scenario plans and costs equal to the numpy lockstep
 engine's on the same LP mappings, two calls bit-equal, and ``preprovision``
-growing a served fleet's plan.
+growing a served fleet's plan.  The LM serving path (no kernel of its own):
+every architecture's smoke config in float32, one model run on the CPU and
+then on the card, logits and decode states within 1e-4 abs (a local window
+of 8 below the 12-token prompt), integer state leaves and MoE slots equal
+(``tests/_torch_lm_card.py``, shared with ``chip_smoke.py`` phase 13c), and
+``launch.serve`` on the card by default.
 """
 
 import numpy as np
@@ -808,3 +813,24 @@ def test_preprovision_on_the_card(dev):
     assert ev.scope == "preprovision" and ev.fleet == name
     assert ev.cost_after == float(
         after @ svc._fleets[name].problem.node_types.cost)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-1b", "granite-34b",
+                                  "kimi-k2-1t-a32b", "olmoe-1b-7b",
+                                  "qwen2-vl-2b", "qwen2.5-3b",
+                                  "recurrentgemma-9b", "rwkv6-7b",
+                                  "whisper-small"])
+def test_lm_smoke_on_the_card_matches_the_cpu(dev, arch):
+    from _torch_lm_card import card_vs_cpu
+
+    got = card_vs_cpu(arch, dev)
+    assert got["logits"] <= 1e-4 and got["states"] <= 1e-4, got
+    assert got["ints_equal"] and got["moe_equal"], got
+
+
+def test_lm_serve_runs_on_the_card_by_default(dev, capsys):
+    from repro_torch.launch import serve as lm_serve
+
+    out = lm_serve.run(["--batch", "2", "--prompt-len", "10", "--gen", "3"])
+    assert out.device.type == "cuda" and tuple(out.shape) == (2, 3)
+    assert capsys.readouterr().out.startswith("prefill: batch=2 len=10")

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports JAX or the JAX package, and its entry points run on the CUDA card
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``,
+the card-side test helper it shares and the card scripts) imports JAX or the
+JAX package, and its entry points run on the CUDA card
 unless the caller asks for the CPU."""
 
 import ast
@@ -15,6 +16,8 @@ PKG = REPO / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 MODULES = sorted(PKG.rglob("*.py"))
+CARD_SIDE = [REPO / "chip_smoke.py", REPO / "tests" / "_torch_lm_card.py",
+             *sorted((REPO / "scripts").glob("*.py"))]
 
 
 def _imported(path: pathlib.Path) -> set[str]:
@@ -43,16 +46,29 @@ def test_package_has_the_slice_modules():
                  "serve/snapshot.py", "serve/trace.py",
                  "stochastic/__init__.py", "stochastic/forecast.py",
                  "stochastic/scenarios.py", "stochastic/select.py",
-                 "launch/__init__.py", "launch/rightsize.py"):
+                 "launch/__init__.py", "launch/rightsize.py",
+                 "models/__init__.py", "models/config.py",
+                 "models/layers.py", "models/attention.py",
+                 "models/moe.py", "models/rglru.py", "models/rwkv.py",
+                 "models/blocks.py", "models/model.py",
+                 "configs/__init__.py", "configs/gemma2_9b.py",
+                 "configs/gemma3_1b.py", "configs/granite_34b.py",
+                 "configs/kimi_k2_1t.py", "configs/olmoe_1b_7b.py",
+                 "configs/qwen25_3b.py", "configs/qwen2_vl_2b.py",
+                 "configs/recurrentgemma_9b.py", "configs/rwkv6_7b.py",
+                 "configs/whisper_small.py", "launch/serve.py",
+                 "launch/train.py"):
         assert name in rel, name
     for src in ("congestion.cu", "fit.cu", "place_step.cu"):
         assert (PKG / "kernels" / "csrc" / src).is_file(), src
     from repro_torch import convert
 
     assert callable(convert.forecast_from_reference)
+    assert callable(convert.params_from_reference)
+    assert callable(convert.decode_state_from_reference)
 
 
-@pytest.mark.parametrize("path", MODULES + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", MODULES + CARD_SIDE,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = _imported(path) & set(FORBIDDEN)
@@ -103,7 +119,11 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                                   solve_lp_many, two_phase)
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
     from repro_torch.launch import rightsize as cli
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import Model, init_params
     from repro_torch.serve import RightsizingService
     from repro_torch.stochastic import (StochasticConfig, gct_forecast,
                                         plan_stochastic)
@@ -127,6 +147,12 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                                 StochasticConfig(scenarios=2)),
         lambda: cli.run(["plan", "--scenarios", "2"]),
         lambda: cli.run(["compare"]),
+        lambda: lm_serve.run(["--gen", "2"]),
+        lambda: Model(smoke_config("gemma2-9b")),
+        lambda: init_params(torch.Generator(), smoke_config("gemma2-9b")),
+        lambda: convert.params_from_reference({}, smoke_config("rwkv6-7b")),
+        lambda: convert.decode_state_from_reference(
+            {}, smoke_config("rwkv6-7b")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
