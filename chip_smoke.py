@@ -14,9 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    placement=PlacementConfig(backend="kernel")).evaluate`` over 16 Table-I
    instances (n=1000, m=10, D=5, T=24, seeds 0..15), all four algorithms,
    2000 PDHG iterations, with the kernel launch counts set to 0 just before
-   and read just after; then the same evaluate once more, at 250 PDHG
-   iterations, under ``torch.profiler`` for the card's busy time and idle
-   share (whole evaluate, LP and placement);
+   and read just after; then the same evaluate once more under
+   ``torch.profiler`` for the card's busy time and idle share (whole
+   evaluate, LP and placement);
 5. kernels on the main path's own inputs: every distinct shape the main path
    gave each kernel, held against the plain version, then timed: device
    time per call of the kernel, its plain version and one PyTorch library
@@ -183,6 +183,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    the 12-token prompt): one model run on the CPU, then moved to the card,
    prefill and 4 decode steps on the same tokens; logits and decode states
    within 1e-4, every MoE dispatch's slots and kept flags equal.
+14. the LM training path, which runs no kernel of the repo either (the
+   reference takes its gradients from ``jax.value_and_grad`` through the same
+   plain attention).  (a) ``qwen2.5-3b`` at full width (3.086 B bf16
+   parameters from a seeded generator, float32 AdamW moments) through
+   ``launch.train.run(["--arch", "qwen2.5-3b", "--preset", "full",
+   "--batch", "4", "--seq", "2048", "--steps", "10", "--ckpt-every", "10",
+   "--ckpt-dir", <a fresh directory under build/>])``: remat, a loss chunk
+   of 256; every loss and grad norm finite; the losses, step seconds (cold,
+   then the median of the warm steps), tokens/s, peak memory and the
+   checkpoint's bytes, snapshot and commit seconds printed, with the host's
+   memory and the disk's free space; the checkpoint restored into a fresh
+   model and state on the card, bit-equal to the live ones; then one warm
+   step, and apart its data, forward + backward and optimizer update, under
+   marker-checked profiles (kernels, busy ms, idle share, the costliest
+   kernels) beside their bounds (the step's matmul operations at the bf16
+   peak; the optimizer's bytes at the memory rate).  (b) the ten
+   architectures' smoke configs in float32: one loss (remat, a loss chunk
+   that pads S) and backward on the CPU and on the card, on the same
+   weights and batch; the loss and every gradient within 1e-4 (against the
+   gradient's own max |value|), every MoE dispatch's slots and kept flags
+   equal (``tests/_torch_train_card.py``).  (c) the reference test's setups
+   (``tests/test_train.py``: qwen2.5-3b smoke, lr 1e-3, warmup 5, B = 4, S =
+   32, loss chunk 64): 30 steps lower the loss by more than 0.2, plain and
+   with int8 gradient compression; microbatch 4 within 5e-5 of microbatch
+   1; ``run_with_restarts`` with faults at steps 7 and 13 within rtol 1e-6 /
+   atol 1e-7 of a clean 20-step run (bit-equality printed); ``launch.train``
+   with ``--crash-at 12`` raises, and the same command again resumes from
+   step 10.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -196,6 +224,7 @@ import argparse
 import collections
 import gc
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -2620,6 +2649,356 @@ def lm_phase(torch, report) -> dict:
     return out
 
 
+# --- phase 14: the LM training path ------------------------------------------
+
+TRAIN_ARCH = "qwen2.5-3b"        # repro.launch.train's default --arch
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 10
+TRAIN_CARD_ATOL = 1e-4           # 14b: the card against the port's CPU run
+TRAIN_FALL = 0.2                 # 14c: tests/test_train.py test_loss_decreases
+TRAIN_MB_ATOL = 5e-5             # 14c: test_microbatch_matches_full_batch_grads
+TRAIN_RTOL, TRAIN_ATOL = 1e-6, 1e-7  # 14c: test_restart_resumes_exact_trajectory
+
+
+def train_bounds(model, cfg, B: int, S: int) -> dict:
+    """Least times (ms) of one training step of B x S tokens, from the
+    shapes.  Forward and backward: the matmul operations, six per parameter
+    per token (the embedding counted once, as the tied unembedding) and
+    twelve per head dimension per query/key pair the causal and window masks
+    keep (QK and PV, forward and two products backward), at the bf16 peak.
+    The optimizer update: parameters, gradients (in the parameters' dtype)
+    and both moments read once, parameters and moments written once, at
+    the memory rate."""
+    n_params = sum(p.numel() for p in model.parameters())
+    H, hd = cfg.num_heads, cfg.head_dim
+    pairs = 0
+    for kind, window, _t, _m in cfg.pattern:
+        w = S if window < 0 else min(window, S)
+        pairs += sum(min(i + 1, w) for i in range(S))
+    flops = 6.0 * n_params * B * S + 12.0 * B * H * hd * pairs
+    opt_bytes = sum(p.numel() * (3 * p.element_size() + 4 * 4)
+                    for p in model.parameters())
+    return {"step_ms": flops / PEAK_BF16_FLOPS * 1e3, "step_flops": flops,
+            "opt_ms": opt_bytes / PEAK_BYTES_PER_S * 1e3,
+            "opt_bytes": float(opt_bytes)}
+
+
+def profile_call(torch, what, fn, wall_ms=None, top_n=8) -> dict:
+    """One call of ``fn`` under a marker-checked profile: kernels, busy ms
+    and, given the call's wall, idle share; the costliest kernels."""
+    ev = fn_events(torch, fn, reps=1, warmup=0)
+    busy_ms = sum(d for _, d in ev) * 1e3
+    top = collections.Counter()
+    for name, d in ev:
+        top[name[:80]] += d * 1e3
+    out = {"kernels": len(ev), "busy_ms": busy_ms,
+           "top_ms": dict(top.most_common(top_n))}
+    line = f"train 14a: {what}: {len(ev)} kernels and copies, {busy_ms:.3f} ms busy"
+    if wall_ms is not None:
+        out["idle_share"] = 1.0 - busy_ms / wall_ms
+        line += f" of {wall_ms:.3f} ms (idle share {out['idle_share']:.4f})"
+    log(line)
+    for name, ms in top.most_common(top_n):
+        log(f"train 14a: {what} device ms {ms:.4f}  {name}")
+    return out
+
+
+def host_memory_gb() -> tuple[float, float]:
+    """(total, available) host memory in GB from /proc/meminfo."""
+    info = {}
+    for row in pathlib.Path("/proc/meminfo").read_text().splitlines():
+        key, val = row.split(":", 1)
+        info[key] = int(val.split()[0]) * 1024
+    return info["MemTotal"] / 1e9, info["MemAvailable"] / 1e9
+
+
+def train_full(torch, report) -> dict:
+    """14a: qwen2.5-3b at full width through ``launch.train.run`` (bf16
+    parameters, float32 AdamW state, remat, a loss chunk of 256), then a
+    restore of its checkpoint into a fresh model and state, then one
+    profiled warm step and its parts."""
+    import io
+    import shutil
+    import statistics
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import loss_fn
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   checkpoint, make_batch, make_train_step)
+    from repro_torch.train.data import to_device
+    from repro_torch.train.optimizer import adamw_update
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (HERE / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="train14a_", dir=HERE / "build")
+    try:
+        disk = shutil.disk_usage(ckdir)
+        mem_total, mem_avail = host_memory_gb()
+        log(f"train 14a: host memory {mem_total:.1f} GB, {mem_avail:.1f} GB "
+            f"available; {disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} "
+            f"GB on the checkpoint's disk")
+        argv = ["--arch", TRAIN_ARCH, "--preset", "full", "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+                str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_STEPS),
+                "--ckpt-dir", ckdir]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(out):
+            model, state, hist = lm_train.run(argv)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for row in out.getvalue().splitlines():
+            log(f"train 14a: | {row}")
+        cfg = model.cfg
+        losses, gnorms, walls = hist["loss"], hist["grad_norm"], hist["wall_s"]
+        if len(losses) != TRAIN_STEPS or not all(
+                math.isfinite(x) for x in losses + gnorms):
+            raise AssertionError(f"14a: losses {losses}, grad norms {gnorms}")
+        n_params = sum(p.numel() for p in model.parameters())
+        warm_s = statistics.median(walls[1:])
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / warm_s
+        (rec,) = hist["checkpoints"]
+        log(f"train 14a: {cfg.name} {n_params} parameters, B={TRAIN_BATCH} "
+            f"S={TRAIN_SEQ}: losses {[round(x, 6) for x in losses]}; grad "
+            f"norms {[round(x, 6) for x in gnorms]}")
+        log(f"train 14a: step s cold {walls[0]:.3f}, warm median {warm_s:.3f} "
+            f"(range {min(walls[1:]):.3f}-{max(walls[1:]):.3f}); "
+            f"{tok_s:.1f} tokens/s; peak memory {peak / 1e9:.3f} GB "
+            f"(torch.cuda.max_memory_allocated; {base / 1e9:.3f} GB held by "
+            f"earlier phases); run {run_s:.1f} s")
+        log(f"train 14a: checkpoint step {rec['step']}: {rec['bytes']} bytes, "
+            f"snapshot {rec['snapshot_s']:.3f} s, commit {rec['commit_s']:.3f} "
+            f"s ({rec['bytes'] / rec['commit_s'] / 1e9:.3f} GB/s)")
+
+        # restore into a fresh model and state on the card: bit-equal
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        (m2, s2), got = checkpoint.restore(ckdir, (model, state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        live = list(checkpoint._leaves((model, state)))
+        fresh = list(checkpoint._leaves((m2, s2)))
+        if got != TRAIN_STEPS or [k for k, _ in live] != [k for k, _ in fresh]:
+            raise AssertionError(f"14a: restored step {got}")
+        unequal = [k for (k, a), (_k, b) in zip(live, fresh)
+                   if a.dtype != b.dtype or not torch.equal(a, b)]
+        if unequal:
+            raise AssertionError(f"14a: restored leaves differ: {unequal[:5]}")
+        log(f"train 14a: restored {len(fresh)} leaves into a fresh model and "
+            f"state on the card in {restore_s:.3f} s, bit-equal")
+        del m2, s2, live, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # one warm step under a marker-checked profile, then its parts
+    tc = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=20),
+                     remat=True, loss_chunk=min(256, TRAIN_SEQ))
+    dc = DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    step_fn = make_train_step(model, tc)
+    dev = model.device
+    bounds = train_bounds(model, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    prof = {"step": profile_call(
+        torch, "a warm step", lambda: step_fn(state, make_batch(
+            cfg, dc, TRAIN_STEPS)), warm_s * 1e3)}
+    names, plist = zip(*model.named_parameters())
+    batch = to_device(make_batch(cfg, dc, TRAIN_STEPS + 1), dev)
+    prof["data"] = profile_call(torch, "data (make_batch, to the card)",
+                            lambda: to_device(make_batch(
+                                cfg, dc, TRAIN_STEPS + 1), dev), top_n=3)
+    grads = []
+
+    def fwd_bwd():
+        loss, _m = loss_fn(model, batch, remat=True, loss_chunk=tc.loss_chunk)
+        grads[:] = torch.autograd.grad(loss, plist)
+
+    prof["forward_backward"] = profile_call(torch, "forward + backward", fwd_bwd)
+    g = dict(zip(names, grads))
+    params = dict(zip(names, plist))
+    prof["optimizer"] = profile_call(
+        torch, "optimizer update",
+        lambda: adamw_update(params, g, state["opt"], tc.optimizer))
+    del grads, g, batch
+    log(f"train 14a: bounds: forward + backward {bounds['step_ms']:.3f} ms "
+        f"({bounds['step_flops']:.4g} matmul operations at the bf16 peak; "
+        f"measured {prof['forward_backward']['busy_ms']:.3f} ms busy, "
+        f"{prof['forward_backward']['busy_ms'] / bounds['step_ms']:.2f}x), "
+        f"optimizer {bounds['opt_ms']:.3f} ms ({bounds['opt_bytes'] / 1e9:.3f} "
+        f"GB at the memory rate; measured {prof['optimizer']['busy_ms']:.3f} "
+        f"ms busy, {prof['optimizer']['busy_ms'] / bounds['opt_ms']:.2f}x)")
+    out = {"arch": cfg.name, "params": n_params, "losses": losses,
+           "grad_norms": gnorms, "step_s": walls, "warm_step_s": warm_s,
+           "tokens_per_s": tok_s, "peak_bytes": peak,
+           "earlier_phases_bytes": base, "run_s": run_s, "checkpoint": rec,
+           "restore_s": restore_s, "profiled": prof, "bounds": bounds,
+           "card": report["card"]}
+    del model, state, step_fn, params, plist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_archs_card_vs_cpu(torch, dev) -> dict:
+    """14b: every architecture's smoke config in float32, one loss and
+    backward on the CPU and on the card (``tests/_torch_train_card.py``,
+    which the card tests share): loss and every gradient within 1e-4, MoE
+    routing equal."""
+    sys.path.append(str(HERE / "tests"))
+    from _torch_train_card import train_card_vs_cpu
+
+    from repro_torch.configs import ARCHS
+
+    out = {}
+    for arch in sorted(ARCHS):
+        r = train_card_vs_cpu(arch, dev)
+        log(f"train 14b {arch}: card vs CPU |loss diff| {r['loss']:.3e}, aux "
+            f"{r['aux']:.3e}, gradients at most {r['grad_rel']:.3e} of their "
+            f"max |value| ({r['grad_worst']}); MoE dispatches "
+            f"{r['moe_dispatches']} (slots equal: {r['moe_equal']})")
+        if not (r["loss"] <= TRAIN_CARD_ATOL and r["aux"] <= TRAIN_CARD_ATOL
+                and r["grad_rel"] <= TRAIN_CARD_ATOL):
+            raise AssertionError(f"14b {arch}: card vs CPU {r}")
+        if not r["moe_equal"]:
+            raise AssertionError(f"14b {arch}: MoE routing differs")
+        out[arch] = r
+    return out
+
+
+def train_reference_setups(torch, dev) -> dict:
+    """14c: tests/test_train.py's setups on the card (qwen2.5-3b smoke, lr
+    1e-3, warmup 5, B = 4, S = 32, loss chunk 64): the loss falls, plain
+    and compressed; microbatch 4 matches 1; restarts resume the exact
+    trajectory; the CLI crashes and resumes."""
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   init_train_state, make_batch,
+                                   make_train_step)
+    from repro_torch.train.fault import (FaultInjector, LoopConfig,
+                                         run_with_restarts)
+
+    cfg = smoke_config(TRAIN_ARCH)
+    dc = DataConfig(batch=4, seq_len=32)
+
+    def setup(microbatch=1, compress=False):
+        tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=5),
+                         remat=True, microbatch=microbatch, loss_chunk=64,
+                         compress_grads=compress)
+        model = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            dev)
+        return model, init_train_state(model, tc), make_train_step(model, tc)
+
+    out = {}
+    for compress in (False, True):
+        model, state, step = setup(compress=compress)
+        losses = []
+        for i in range(30):
+            state, m = step(state, make_batch(cfg, dc, i))
+            losses.append(float(m["loss"]))
+        fall = sum(losses[:5]) / 5 - sum(losses[-5:]) / 5
+        what = "compressed" if compress else "plain"
+        log(f"train 14c: 30 steps {what}: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, fall {fall:.4f} (first 5 against last 5; "
+            f"needs > {TRAIN_FALL})")
+        if not fall > TRAIN_FALL:
+            raise AssertionError(f"14c {what}: the loss fell {fall}")
+        out[f"fall_{what}"] = fall
+
+    batch = make_batch(cfg, dc, 0)
+    m1, s1, step1 = setup(1)
+    m4, s4, step4 = setup(4)
+    step1(s1, batch)
+    step4(s4, batch)
+    mb = max(float((a.detach() - b.detach()).abs().max())
+             for a, b in zip(m1.parameters(), m4.parameters()))
+    log(f"train 14c: microbatch 4 against 1 after one step: max |diff| "
+        f"{mb:.3e} (bound {TRAIN_MB_ATOL})")
+    if not mb < TRAIN_MB_ATOL:
+        raise AssertionError(f"14c: microbatch 4 differs by {mb}")
+    out["microbatch"] = mb
+
+    root = tempfile.mkdtemp(prefix="train14c_", dir=HERE / "build")
+    try:
+        def make_args():
+            model, state, step = setup()
+            return step, model, state, (lambda s: make_batch(cfg, dc, s))
+
+        runs = {}
+        for name, crash in (("clean", ()), ("crashy", (7, 13))):
+            lc = LoopConfig(total_steps=20, ckpt_dir=f"{root}/{name}",
+                            ckpt_every=5)
+            runs[name] = run_with_restarts(make_args, lc,
+                                           FaultInjector(crash))
+        (mc, _sc, hc), (mx, _sx, hx) = runs["clean"], runs["crashy"]
+        worst, bit_equal = 0.0, True
+        for a, b in zip(mc.parameters(), mx.parameters()):
+            a, b = a.detach(), b.detach()
+            bit_equal &= torch.equal(a, b)
+            if not torch.allclose(b, a, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+                raise AssertionError("14c: the restarted run left the clean "
+                                     "trajectory")
+            worst = max(worst, float((a - b).abs().max()))
+        log(f"train 14c: restarts at steps 7 and 13 ({hx['restarts']} "
+            f"restarts, resumed from step {hx['start_step']}): final "
+            f"parameters within rtol {TRAIN_RTOL} / atol {TRAIN_ATOL} of the "
+            f"clean run, max |diff| {worst:.3e}, bit-equal {bit_equal}")
+        out["restart"] = {"max_abs_diff": worst, "bit_equal": bit_equal,
+                          "restarts": hx["restarts"]}
+
+        argv = ["--preset", "smoke", "--steps", "20", "--ckpt-every", "5",
+                "--ckpt-dir", f"{root}/cli"]
+        text = io.StringIO()
+        try:
+            with redirect_stdout(text):
+                lm_train.run(argv + ["--crash-at", "12"])
+        except RuntimeError as e:
+            if "injected fault at step 12" not in str(e):
+                raise
+            log(f"train 14c: launch.train --crash-at 12 raised: {e}")
+        else:
+            raise AssertionError("14c: --crash-at 12 did not raise")
+        text = io.StringIO()
+        with redirect_stdout(text):
+            _m, _s, hist = lm_train.run(argv)
+        last = text.getvalue().splitlines()[-1]
+        log(f"train 14c: the same command again: {last}")
+        if hist["start_step"] != 10 or "resumed_from=10" not in last:
+            raise AssertionError(f"14c: the rerun did not resume: {last}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def train_phase(torch, report) -> dict:
+    """Phase 14: the LM training path (14a qwen2.5-3b at full width, 14b
+    every architecture card vs CPU, 14c the reference test's setups)."""
+    t_phase = time.perf_counter()
+    out = {"full": train_full(torch, report)}
+    t_b = time.perf_counter()
+    dev = torch.device("cuda")
+    out["archs"] = train_archs_card_vs_cpu(torch, dev)
+    t_c = time.perf_counter()
+    out["setups"] = train_reference_setups(torch, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"train: phase 14 took {out['phase_s']:.1f} s (14a "
+        f"{t_b - t_phase:.1f} s, 14b {t_c - t_b:.1f} s, 14c "
+        f"{time.perf_counter() - t_c:.1f} s)")
+    report["train"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -3007,6 +3386,9 @@ def main(argv=None) -> int:
 
     # 13. the LM serving path (no kernel of its own)
     lm_phase(torch, report)
+
+    # 14. the LM training path (no kernel of its own)
+    train_phase(torch, report)
 
     # the congestion kernel's one counter counts both of its entries; the
     # main path launches it only through congestion_lp

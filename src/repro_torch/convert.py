@@ -17,12 +17,16 @@ in the port with ``repro_torch.serve.RightsizingService.restore(path)``,
 warm states bit for bit, and the other way round.
 
 ``params_from_reference`` builds the port's LM ``Model`` from the
-reference's ``init_params`` pytree, and ``decode_state_from_reference`` the
-port's decode state from the reference's ``prefill``/``init_decode_state``
-state, both given as numpy arrays (``jax.tree.map(np.asarray, tree)``).  The
-reference stacks each sub-block of a segment along a leading ``repeats``
-axis; repeat r of sub-block j in the segment starting at layer o is the
-port's layer o + r * len(unit) + j (``segment_layers``).
+reference's ``init_params`` pytree, ``named_from_reference`` the port's
+``{parameter name: tensor}`` dict from any pytree of that layout (gradients,
+AdamW moments, error-feedback residuals), ``train_state_from_reference`` the
+port's training state from the reference's ``init_train_state`` layout, and
+``decode_state_from_reference`` the port's decode state from the reference's
+``prefill``/``init_decode_state`` state, all given as numpy arrays
+(``jax.tree.map(np.asarray, tree)``).  The reference stacks each sub-block
+of a segment along a leading ``repeats`` axis; repeat r of sub-block j in
+the segment starting at layer o is the port's layer o + r * len(unit) + j
+(``segment_layers``).
 """
 
 from __future__ import annotations
@@ -34,13 +38,14 @@ from .core.constraints import TaskConstraints
 from .core.lp_pdhg import PDHGState
 from .core.problem import NodeTypes, Problem
 from .device import resolve_device
-from .models.config import ModelConfig, build_segments
+from .models.config import ModelConfig, segment_layers
 from .models.model import Model
 from .stochastic.forecast import DemandForecast
 
 __all__ = ["problem_from_arrays", "constraints_from", "state_from_numpy",
            "forecast_from_reference", "segment_layers",
-           "params_from_reference", "decode_state_from_reference"]
+           "named_from_reference", "params_from_reference",
+           "train_state_from_reference", "decode_state_from_reference"]
 
 
 def problem_from_arrays(dem, start=None, end=None, cap=None, cost=None,
@@ -112,19 +117,6 @@ def forecast_from_reference(fc) -> DemandForecast:
         burst_cap=fc.burst_cap)
 
 
-def segment_layers(cfg: ModelConfig):
-    """(layer, segment, repeat, sub-block) for every layer of ``cfg``, in
-    the reference's stacking order: repeat r of sub-block j in the segment
-    starting at layer o is layer o + r * len(unit) + j."""
-    out, o = [], 0
-    for si, seg in enumerate(build_segments(cfg)):
-        for r in range(seg.repeats):
-            for j in range(len(seg.unit)):
-                out.append((o + r * len(seg.unit) + j, si, r, j))
-        o += seg.layers
-    return out
-
-
 def _tensor(a, device) -> torch.Tensor:
     """A numpy array (bfloat16 ones included) as a tensor on ``device``."""
     a = np.asarray(a)
@@ -143,6 +135,26 @@ def _flat(tree: dict, prefix: str = ""):
             yield prefix + key, val
 
 
+def named_from_reference(tree: dict, cfg: ModelConfig,
+                         device=None) -> dict:
+    """``{port parameter name: tensor}`` on ``device`` (None = the CUDA
+    card) from a pytree in the layout of the reference's ``init_params``
+    (its parameters, their gradients, AdamW's ``m`` or ``v``, or the
+    error-feedback residuals) as numpy arrays; each leaf keeps its dtype."""
+    dev = resolve_device(device)
+    sd = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
+    for layer, si, r, j in segment_layers(cfg):
+        for name, leaf in _flat(tree["segments"][si][j]):
+            sd[f"layers.{layer}.{name}"] = np.asarray(leaf)[r]
+    if cfg.encoder_layers:
+        enc = tree["encoder"]
+        sd["encoder.final_norm"] = enc["final_norm"]
+        for i in range(cfg.encoder_layers):
+            for name, leaf in _flat(enc["blocks"]):
+                sd[f"encoder.blocks.{i}.{name}"] = np.asarray(leaf)[i]
+    return {k: _tensor(v, dev) for k, v in sd.items()}
+
+
 def params_from_reference(params: dict, cfg: ModelConfig,
                           device=None) -> Model:
     """The port's ``Model`` holding the reference's parameters ``params``
@@ -150,20 +162,27 @@ def params_from_reference(params: dict, cfg: ModelConfig,
     CUDA card).  Every parameter of the model is set, and every leaf used
     (``load_state_dict(strict=True)``)."""
     dev = resolve_device(device)
-    sd = {"embed": params["embed"], "final_norm": params["final_norm"]}
-    for layer, si, r, j in segment_layers(cfg):
-        for name, leaf in _flat(params["segments"][si][j]):
-            sd[f"layers.{layer}.{name}"] = np.asarray(leaf)[r]
-    if cfg.encoder_layers:
-        enc = params["encoder"]
-        sd["encoder.final_norm"] = enc["final_norm"]
-        for i in range(cfg.encoder_layers):
-            for name, leaf in _flat(enc["blocks"]):
-                sd[f"encoder.blocks.{i}.{name}"] = np.asarray(leaf)[i]
     model = Model(cfg, dev)
-    model.load_state_dict({k: _tensor(v, dev) for k, v in sd.items()},
+    model.load_state_dict(named_from_reference(params, cfg, dev),
                           strict=True)
     return model
+
+
+def train_state_from_reference(state: dict, cfg: ModelConfig,
+                               device=None) -> dict:
+    """The port's training state (``train.init_train_state``'s layout) from
+    the reference's, as numpy arrays, on ``device`` (None = the CUDA card):
+    AdamW's ``m`` and ``v`` and, with gradient compression, ``err`` by
+    parameter name, and ``step`` as an int32 tensor."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    out = {"opt": {"m": named_from_reference(opt["m"], cfg, dev),
+                   "v": named_from_reference(opt["v"], cfg, dev),
+                   "step": torch.tensor(int(np.asarray(opt["step"])),
+                                        dtype=torch.int32, device=dev)}}
+    if "err" in state:
+        out["err"] = named_from_reference(state["err"], cfg, dev)
+    return out
 
 
 def decode_state_from_reference(state: dict, cfg: ModelConfig,

@@ -14,8 +14,9 @@ Block kinds:
   'xattn'  — decoder block with self-attn + cross-attn (enc-dec models)
 
 Ported from ``repro.models.config`` verbatim; the port runs the layers of a
-segment one after another (``Model.layers``, in layer order) and adds only
-``torch_dtype``.
+segment one after another (``Model.layers``, in layer order) and adds
+``torch_dtype`` and ``segment_layers``, the map from the reference's stacked
+layout to that order.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import dataclasses
 import torch
 
 __all__ = ["ModelConfig", "SubBlock", "Segment", "build_segments",
+           "segment_layers",
            "torch_dtype"]
 
 GLOBAL_WINDOW = -1  # sentinel: full-context attention
@@ -187,3 +189,16 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
         raise ValueError(f"unsupported dtype {cfg.dtype!r}; "
                          f"known: {sorted(_DTYPES)}")
     return _DTYPES[cfg.dtype]
+
+
+def segment_layers(cfg: ModelConfig):
+    """(layer, segment, repeat, sub-block) for every layer of ``cfg``, in
+    the reference's stacking order: repeat r of sub-block j in the segment
+    starting at layer o is layer o + r * len(unit) + j."""
+    out, o = [], 0
+    for si, seg in enumerate(build_segments(cfg)):
+        for r in range(seg.repeats):
+            for j in range(len(seg.unit)):
+                out.append((o + r * len(seg.unit) + j, si, r, j))
+        o += seg.layers
+    return out

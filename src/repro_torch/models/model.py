@@ -1,29 +1,39 @@
-"""Model assembly: prefill and single-token decode.
+"""Model assembly: train forward (chunked xent loss), prefill, and
+single-token decode.
 
 Ported from ``repro.models.model``.  The reference stacks the sub-blocks of
 each repeated-unit segment and scans them; the port holds one module per
 layer in layer order (``Model.layers``) and runs them one after another,
 which computes the same thing.  A decode state is
-``{"caches": [one dict per layer], "pos": int}``.  ``forward_train`` and
-``loss_fn`` belong to the training path and are not ported here.
+``{"caches": [one dict per layer], "pos": int}``.
 
-Every entry point runs under ``torch.no_grad()``; ``Model(cfg)`` and
-``init_params`` place the parameters on the CUDA card unless given a device.
+``forward_train`` and ``loss_fn`` run with autograd.  The reference's
+``jax.checkpoint`` of its scan body (one repeat of a segment's unit) is a
+``torch.utils.checkpoint`` of each run of ``len(unit)`` consecutive layers
+here, and each loss chunk is checkpointed as there, so a chunk's (B, C, V)
+float32 logits live only while that chunk is computed.  The serving entry
+points run under ``torch.no_grad()``; ``Model(cfg)`` and ``init_params``
+place the parameters on the CUDA card unless given a device.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import blocks as blocks_mod
-from .config import GLOBAL_WINDOW, ModelConfig, SubBlock, torch_dtype
+from .config import (GLOBAL_WINDOW, ModelConfig, SubBlock, segment_layers,
+                     torch_dtype)
 from .layers import init_dense, rms_norm, softcap
 
 __all__ = [
     "Model",
     "init_params",
+    "forward_train",
+    "loss_fn",
     "prefill",
     "decode_step",
     "init_decode_state",
@@ -130,10 +140,10 @@ def _input_embeddings(model: Model, batch):
     return x
 
 
-@torch.no_grad()
 def _run_encoder(frames, model: Model):
     """Bidirectional encoder over precomputed frame embeddings (stub
-    frontend): (B, Se, d) -> (B, Se, d)."""
+    frontend): (B, Se, d) -> (B, Se, d).  With grad where the caller has it
+    (``forward_train``), without under ``prefill``."""
     Se = frames.shape[1]
     positions = torch.arange(Se, dtype=torch.int32,
                              device=frames.device)[None, :]
@@ -143,11 +153,96 @@ def _run_encoder(frames, model: Model):
     return rms_norm(x, model.encoder.final_norm)
 
 
-def _logits(model: Model, x):
+def _logits(x, embed, cfg: ModelConfig):
     """(..., d) final hidden -> float32 soft-capped logits: the product in
     the model dtype, then cast, as the reference."""
-    logits = (x @ model.embed.T).float()
-    return softcap(logits, model.cfg.logit_softcap)
+    return softcap((x @ embed.T).float(), cfg.logit_softcap)
+
+
+# --------------------------------------------------------------------------
+# train forward + loss
+# --------------------------------------------------------------------------
+
+def _units(model: Model):
+    """The layers in the reference's scan steps: each repeat of each
+    segment's unit, a run of ``len(unit)`` consecutive layers."""
+    units = {}
+    for layer, si, r, _j in segment_layers(model.cfg):
+        units.setdefault((si, r), []).append(model.layers[layer])
+    return list(units.values())
+
+
+def _run_unit(x, aux, unit, positions, enc_out, mrope_positions):
+    """One scan step: the unit's layers in order, their aux losses added
+    to ``aux`` one by one, as the reference's carry."""
+    for block in unit:
+        x, a, _state = block(x, positions=positions, causal=True,
+                             enc_out=enc_out, mrope_positions=mrope_positions)
+        aux = aux + a
+    return x, aux
+
+
+def forward_train(model: Model, batch, remat: bool = False):
+    """Returns (final hidden states (B, S, d), aux losses).  ``batch``
+    holds "tokens" (B, S) and, as the config needs, "frames", "vision" and
+    "mrope_positions", on the model's device.  With ``remat`` each unit's
+    activations are recomputed in backward."""
+    cfg = model.cfg
+    B, S = batch["tokens"].shape
+    x = _input_embeddings(model, batch)
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = _run_encoder(batch["frames"].to(x.dtype), model)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None, :].expand(B, S)
+    mrope_positions = batch.get("mrope_positions")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for unit in _units(model):
+        args = (x, aux, unit, positions, enc_out, mrope_positions)
+        if remat:
+            # the forward draws no random numbers: no RNG state to keep
+            x, aux = checkpoint(_run_unit, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = _run_unit(*args)
+    return rms_norm(x, model.final_norm), aux
+
+
+def _xent_chunk(x, embed, labels, cfg: ModelConfig):
+    """x: (B, C, d); labels: (B, C), -1 where none. Returns (sum_loss,
+    count)."""
+    logits = _logits(x, embed, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      torch.clamp_min(labels, 0)[..., None].long())[..., 0]
+    valid = labels >= 0
+    loss = torch.where(valid, lse - ll, 0.0)
+    return loss.sum(), valid.sum()
+
+
+def loss_fn(model: Model, batch, remat: bool = False, loss_chunk: int = 512,
+            aux_weight: float = 0.01):
+    """Scalar LM loss with chunked cross-entropy (never materializes the
+    full (B, S, V) logits): returns (loss, {"xent", "aux"}).  S is padded
+    up to a multiple of the chunk with label -1."""
+    x, aux = forward_train(model, batch, remat=remat)
+    labels = batch["labels"]
+    B, S, d = x.shape
+    C = min(loss_chunk, S)
+    n_chunks = -(-S // C)
+    pad = n_chunks * C - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(n_chunks):
+        s, c = checkpoint(_xent_chunk, x[:, i * C:(i + 1) * C], model.embed,
+                          labels[:, i * C:(i + 1) * C], model.cfg,
+                          use_reentrant=False, preserve_rng_state=False)
+        tot, cnt = tot + s, cnt + c
+    loss = tot / torch.clamp_min(cnt, 1)
+    return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
 
 def _cross_kv(block, enc_out):
@@ -193,7 +288,8 @@ def decode_step(model: Model, state, tokens):
         x, cache = block.decode(x, cache, pos)
         caches.append(cache)
     x = rms_norm(x, model.final_norm)
-    return _logits(model, x), {"caches": caches, "pos": pos + 1}
+    return _logits(x, model.embed, model.cfg), {"caches": caches,
+                                                "pos": pos + 1}
 
 
 def _format_attn_cache(kv, sub: SubBlock, cfg: ModelConfig, S: int,
@@ -246,4 +342,4 @@ def prefill(model: Model, batch, max_len: int):
                 st["xk"], st["xv"] = _cross_kv(block, enc_out)
         caches.append(st)
     x = rms_norm(x, model.final_norm)
-    return _logits(model, x[:, -1]), {"caches": caches, "pos": S}
+    return _logits(x[:, -1], model.embed, cfg), {"caches": caches, "pos": S}

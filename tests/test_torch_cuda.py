@@ -35,7 +35,14 @@ every architecture's smoke config in float32, one model run on the CPU and
 then on the card, logits and decode states within 1e-4 abs (a local window
 of 8 below the 12-token prompt), integer state leaves and MoE slots equal
 (``tests/_torch_lm_card.py``, shared with ``chip_smoke.py`` phase 13c), and
-``launch.serve`` on the card by default.
+``launch.serve`` on the card by default.  The LM training path (no kernel of
+its own either): every architecture's smoke config in float32, one
+``loss_fn`` (remat, a padded loss chunk) and backward on the CPU and on the
+card, loss within 1e-4 abs and every gradient within 1e-4 of its own max
+|value|, MoE slots equal in forward and recompute
+(``tests/_torch_train_card.py``, shared with ``chip_smoke.py`` phase 14b);
+``launch.train`` on the card by default; a CPU checkpoint restored onto the
+card bit-equal.
 """
 
 import numpy as np
@@ -834,3 +841,43 @@ def test_lm_serve_runs_on_the_card_by_default(dev, capsys):
     out = lm_serve.run(["--batch", "2", "--prompt-len", "10", "--gen", "3"])
     assert out.device.type == "cuda" and tuple(out.shape) == (2, 3)
     assert capsys.readouterr().out.startswith("prefill: batch=2 len=10")
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-1b", "granite-34b",
+                                  "kimi-k2-1t-a32b", "olmoe-1b-7b",
+                                  "qwen2-vl-2b", "qwen2.5-3b",
+                                  "recurrentgemma-9b", "rwkv6-7b",
+                                  "whisper-small"])
+def test_lm_training_on_the_card_matches_the_cpu(dev, arch):
+    from _torch_train_card import train_card_vs_cpu
+
+    got = train_card_vs_cpu(arch, dev)
+    assert got["loss"] <= 1e-4 and got["aux"] <= 1e-4, got
+    assert got["grad_rel"] <= 1e-4 and got["moe_equal"], got
+
+
+def test_lm_train_runs_on_the_card_by_default(dev, tmp_path, capsys):
+    from repro_torch.launch import train as lm_train
+
+    model, state, hist = lm_train.run(
+        ["--steps", "3", "--ckpt-dir", str(tmp_path)])
+    assert model.device.type == "cuda" and len(hist["loss"]) == 3
+    assert state["opt"]["m"]["embed"].device.type == "cuda"
+    assert capsys.readouterr().out.startswith("config: qwen2.5-3b-smoke")
+
+
+def test_checkpoint_restores_onto_the_card(dev, tmp_path):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainConfig, checkpoint, init_train_state
+
+    cfg = smoke_config("gemma3-1b")
+    model = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    state = init_train_state(model, TrainConfig())
+    checkpoint.save(str(tmp_path), (model, state), 4)
+    (m2, s2), step = checkpoint.restore(str(tmp_path), (model, state))
+    assert step == 4 and m2.device.type == "cuda"
+    for (n, a), (_n, b) in zip(model.named_parameters(),
+                               m2.named_parameters()):
+        assert torch.equal(a, b.cpu()), n
+    assert s2["opt"]["step"].device.type == "cuda"

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``,
-the card-side test helper it shares and the card scripts) imports JAX or the
-JAX package, and its entry points run on the CUDA card
-unless the caller asks for the CPU."""
+the card-side test helpers it shares and the card scripts) imports JAX, the
+JAX package or the reference's checkpoint serializers (msgpack, zstandard),
+and its entry points run on the CUDA card unless the caller asks for the
+CPU."""
 
 import ast
 import pathlib
@@ -13,10 +14,11 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "zstandard")
 
 MODULES = sorted(PKG.rglob("*.py"))
 CARD_SIDE = [REPO / "chip_smoke.py", REPO / "tests" / "_torch_lm_card.py",
+             REPO / "tests" / "_torch_train_card.py",
              *sorted((REPO / "scripts").glob("*.py"))]
 
 
@@ -57,7 +59,10 @@ def test_package_has_the_slice_modules():
                  "configs/qwen25_3b.py", "configs/qwen2_vl_2b.py",
                  "configs/recurrentgemma_9b.py", "configs/rwkv6_7b.py",
                  "configs/whisper_small.py", "launch/serve.py",
-                 "launch/train.py"):
+                 "launch/train.py", "train/__init__.py",
+                 "train/optimizer.py", "train/compression.py",
+                 "train/data.py", "train/train_step.py",
+                 "train/checkpoint.py", "train/fault.py"):
         assert name in rel, name
     for src in ("congestion.cu", "fit.cu", "place_step.cu"):
         assert (PKG / "kernels" / "csrc" / src).is_file(), src
@@ -66,6 +71,13 @@ def test_package_has_the_slice_modules():
     assert callable(convert.forecast_from_reference)
     assert callable(convert.params_from_reference)
     assert callable(convert.decode_state_from_reference)
+    assert callable(convert.named_from_reference)
+    assert callable(convert.train_state_from_reference)
+    from repro_torch.launch import train
+    from repro_torch.models import forward_train, loss_fn
+
+    assert callable(train.run) and callable(forward_train)
+    assert callable(loss_fn)
 
 
 @pytest.mark.parametrize("path", MODULES + CARD_SIDE,
@@ -123,13 +135,19 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from repro_torch.configs import smoke_config
     from repro_torch.launch import rightsize as cli
     from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import train as lm_train
     from repro_torch.models import Model, init_params
+    from repro_torch.train import checkpoint
     from repro_torch.serve import RightsizingService
     from repro_torch.stochastic import (StochasticConfig, gct_forecast,
                                         plan_stochastic)
     from repro_torch.workload import SyntheticSpec, synthetic_instance
 
     RightsizingService(device="cpu").snapshot(str(tmp_path))
+    cfg = smoke_config("qwen2.5-3b")
+    ckpt_dir = str(tmp_path / "ckpt")
+    checkpoint.save(ckpt_dir, Model(cfg, "cpu"), 1)
+    train_args = ["--steps", "1", "--ckpt-dir", str(tmp_path / "run")]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     p = synthetic_instance(SyntheticSpec(n=8, m=2, D=2, T=5))
     mapping = [0] * p.n
@@ -153,6 +171,11 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         lambda: convert.params_from_reference({}, smoke_config("rwkv6-7b")),
         lambda: convert.decode_state_from_reference(
             {}, smoke_config("rwkv6-7b")),
+        lambda: convert.named_from_reference({}, smoke_config("rwkv6-7b")),
+        lambda: convert.train_state_from_reference(
+            {}, smoke_config("rwkv6-7b")),
+        lambda: lm_train.run(train_args),
+        lambda: checkpoint.restore(ckpt_dir, Model(cfg, "cpu")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -164,6 +187,11 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     assert plan_stochastic(gct_forecast(n=12, m=3),
                            StochasticConfig(scenarios=2),
                            device="cpu").lp_dispatches == 1
+    assert not (tmp_path / "run").exists()  # the run raised before training
+    assert checkpoint.restore(ckpt_dir, Model(cfg, "cpu"),
+                              device="cpu")[1] == 1
+    model, _state, hist = lm_train.run(train_args + ["--device", "cpu"])
+    assert model.device.type == "cpu" and len(hist["loss"]) == 1
 
 
 def test_kernel_build_failure_propagates_out_of_plan_stochastic(monkeypatch):
