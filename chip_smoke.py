@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--phase 15]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -211,6 +211,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    atol 1e-7 of a clean 20-step run (bit-equality printed); ``launch.train``
    with ``--crash-at 12`` raises, and the same command again resumes from
    step 10.
+15. the LM dry-run (``repro_torch.launch.dryrun``), which runs no kernel,
+   then the rightsizer on its records, which runs two.  (a) ``python -m
+   repro_torch.launch.dryrun`` in one process per cell of ``DRYRUN_CELLS``
+   (qwen2.5-3b's train_4k, prefill_32k and decode_32k on 16x16 and
+   2x16x16, and on 16x16 the other schedule cells the ``--all`` run
+   passed), six at once on a thread started after phase 2, beside phases
+   3-12 (host work on otherwise idle cores; stopped during phases 13-14,
+   whose decode readings are host-bound), into ``build/dryrun/``; per
+   record the per-device argument, temp and output GB, FLOPs, collective
+   bytes by kind and trace seconds.  (b) The dry-run's
+   accounting of phase 14's step (qwen2.5-3b, B = 4, S = 2048, its
+   ``TrainConfig``) on the 1x1 host mesh over the card, against one such
+   step run on the card: argument + temp + output must lie within [0.9, 2]
+   times ``torch.cuda.max_memory_allocated``; the counted FLOPs beside
+   ``train_bounds``'.  (c) ``workload.fleet_problem(DEFAULT_SCHEDULE,
+   dryrun_dir="build/dryrun")`` (``day-serve-qwen`` from its record)
+   through ``FleetEngine().evaluate`` in the card configuration (tol,
+   ``pallas``, the compiled stepper): launches checked, every placement
+   call equal to the numpy lockstep engine's, every algorithm's plan clean
+   under ``check_plan``.  ``--phase 15`` runs phases 1, 2 and 15 only.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -2999,10 +3019,312 @@ def train_phase(torch, report) -> dict:
     return out
 
 
+# --- phase 15: the LM dry-run, feeding job demands to the rightsizer ---------
+
+# python -m repro_torch.launch.dryrun, one subprocess per (arch, shape, mesh):
+# qwen2.5-3b's six cells, and on 16x16 (the mesh fleet_problem reads) the
+# other DEFAULT_SCHEDULE cells that the --all run on the card passed
+# (PERF.md §6; rwkv6-7b train_4k ran out of time there); the longest
+# first
+DRYRUN_CELLS = [("granite-34b", "prefill_32k", "pod"),
+                ("qwen2.5-3b", "prefill_32k", "pod"),
+                ("qwen2.5-3b", "prefill_32k", "multipod"),
+                ("whisper-small", "prefill_32k", "pod"),
+                ("gemma2-9b", "train_4k", "pod"),
+                ("olmoe-1b-7b", "train_4k", "pod"),
+                ("qwen2.5-3b", "train_4k", "pod"),
+                ("qwen2.5-3b", "train_4k", "multipod"),
+                ("qwen2.5-3b", "decode_32k", "pod"),
+                ("qwen2.5-3b", "decode_32k", "multipod"),
+                ("gemma3-1b", "decode_32k", "pod"),
+                ("qwen2-vl-2b", "decode_32k", "pod"),
+                ("kimi-k2-1t-a32b", "decode_32k", "pod"),
+                ("recurrentgemma-9b", "long_500k", "pod")]
+DRYRUN_TIMEOUT = 900             # seconds for one cell's subprocess
+DRYRUN_WIDTH = 6                 # cells at once, beside the main process
+FOOT_LO, FOOT_HI = 0.9, 2.0      # 15b: counted footprint / measured peak
+
+
+class DryrunCells:
+    """15a: every cell of ``DRYRUN_CELLS`` through the dry-run's CLI, each
+    in its own process (one fake process group each), ``DRYRUN_WIDTH`` at
+    once, on a thread started right after the build: the cells are host
+    work and run beside phases 3-12, which leave the host's other cores
+    idle (``pause`` holds them during phases 13-14).  ``join`` waits for
+    them and checks the records; ``kill`` stops whatever still runs."""
+
+    def __init__(self, out_dir: pathlib.Path):
+        import shutil
+        import threading
+
+        self.out_dir = out_dir
+        shutil.rmtree(out_dir, ignore_errors=True)
+        (out_dir / "logs").mkdir(parents=True)
+        self.running, self.done, self.failed = [], {}, None
+        self.stopped = self.paused = False
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        import os
+
+        env = dict(os.environ, PYTHONPATH=str(HERE / "src"),
+                   OMP_NUM_THREADS="1")
+        todo = list(DRYRUN_CELLS)
+        while (todo or self.running) and not self.stopped:
+            while todo and len(self.running) < DRYRUN_WIDTH \
+                    and self.failed is None and not self.paused:
+                arch, shape, mesh = todo.pop(0)
+                log_path = self.out_dir / "logs" / f"{arch}__{shape}__{mesh}.log"
+                f = open(log_path, "w")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", mesh,
+                     "--out", str(self.out_dir)], stdout=f,
+                    stderr=subprocess.STDOUT, env=env, cwd=HERE)
+                self.running.append(((arch, shape, mesh), proc, f, log_path,
+                                     time.perf_counter()))
+            if self.failed is not None:
+                todo = []
+            time.sleep(0.5)
+            for item in list(self.running):
+                cell, proc, f, log_path, start = item
+                if proc.poll() is None and (self.paused or time.perf_counter()
+                                            - start < DRYRUN_TIMEOUT):
+                    continue
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                f.close()
+                self.running.remove(item)
+                text = log_path.read_text()
+                lines = [r for r in text.splitlines()
+                         if r.startswith(("OK", "FAIL", "SKIP"))]
+                self.done[cell] = {"rc": proc.returncode, "lines": lines,
+                                   "wall_s": time.perf_counter() - start,
+                                   "tail": text.splitlines()[-30:]}
+                if proc.returncode != 0 or not lines or \
+                        not all(r.startswith("OK") for r in lines):
+                    self.failed = self.failed or cell
+        self.wall = time.perf_counter() - self.t0
+
+    def pause(self):
+        """Stop the running cells' processes (SIGSTOP) and start no more
+        until ``resume``: phases 13-14's host-bound readings (a decode step's
+        launches) are taken on a host of their own."""
+        import signal
+
+        self.paused = True
+        for _cell, proc, _f, _path, _start in list(self.running):
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGSTOP)
+        log(f"dryrun 15a: paused {len(self.running)} running cells, "
+            f"{len(self.done)} done")
+
+    def resume(self):
+        import signal
+
+        for _cell, proc, _f, _path, _start in list(self.running):
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGCONT)
+        self.paused = False
+        log(f"dryrun 15a: resumed {len(self.running)} cells")
+
+    def kill(self):
+        self.stopped = True
+        for _cell, proc, f, _path, _start in list(self.running):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+        self.thread.join(timeout=60)
+
+    def join(self) -> dict:
+        t0 = time.perf_counter()
+        self.thread.join()
+        log(f"dryrun 15a: waited {time.perf_counter() - t0:.1f} s for the "
+            f"cells started {t0 - self.t0:.1f} s before")
+        for cell, res in self.done.items():
+            for row in res["lines"]:
+                log(f"dryrun 15a: {row} (process {res['wall_s']:.1f} s)")
+        if self.failed is not None:
+            for row in self.done[self.failed]["tail"]:
+                log(f"dryrun 15a: | {row}")
+            raise AssertionError(f"15a: the dry-run of {self.failed} failed "
+                                 f"(exit {self.done[self.failed]['rc']})")
+        records = {}
+        for path in sorted(self.out_dir.glob("*.json")):
+            rec = json.loads(path.read_text())
+            records[path.stem] = rec
+            sizes = [rec[k] for k in ("argument_size_in_bytes",
+                                      "temp_size_in_bytes",
+                                      "output_size_in_bytes")]
+            if not (rec["devices"] == (256 if path.stem.endswith("__16x16")
+                                       else 512)
+                    and all(math.isfinite(v) and v > 0
+                            for v in sizes + [rec["flops"]])):
+                raise AssertionError(f"15a: record {path.stem}: {rec}")
+            coll = ", ".join(f"{k} {v:.4g}" for k, v in
+                             rec["collective_bytes"].items())
+            log(f"dryrun 15a: {path.stem}: per device argument "
+                f"{rec['argument_size_in_bytes'] / 1e9:.4f} GB, temp "
+                f"{rec['temp_size_in_bytes'] / 1e9:.4f} GB, output "
+                f"{rec['output_size_in_bytes'] / 1e9:.4f} GB; flops "
+                f"{rec['flops']:.4g}; collective bytes {coll} "
+                f"({rec['collective_count']} collectives); trace "
+                f"{rec['lower_s']} s")
+        want = {f"{a}__{s}__{'16x16' if m == 'pod' else '2x16x16'}"
+                for a, s, m in DRYRUN_CELLS}
+        if set(records) != want:
+            raise AssertionError(f"15a: records {sorted(records)} != "
+                                 f"{sorted(want)}")
+        log(f"dryrun 15a: {len(records)} records in {self.wall:.1f} s "
+            f"({DRYRUN_WIDTH} at once)")
+        return {"records": records, "wall_s": self.wall,
+                "cells": {"__".join(k): {key: v for key, v in res.items()
+                                         if key != "tail"}
+                          for k, res in self.done.items()}}
+
+
+def dryrun_against_card(torch) -> dict:
+    """15b: the dry-run's accounting of phase 14's training step on the 1x1
+    host mesh over the card, against the same step run on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_step
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   init_train_state, make_batch,
+                                   make_train_step)
+
+    cfg = get_config(TRAIN_ARCH)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=20),
+                     remat=True, loss_chunk=min(256, TRAIN_SEQ))
+    with fake_world(1):
+        acc = run_step(cfg, "train", TRAIN_SEQ, TRAIN_BATCH, make_host_mesh(),
+                       train_cfg=tc)
+    est = (acc["argument_size_in_bytes"] + acc["temp_size_in_bytes"]
+           + acc["output_size_in_bytes"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    model = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    state = init_train_state(model, tc)
+    step = make_train_step(model, tc)
+    _state, metrics = step(state, make_batch(
+        cfg, DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ), 0))
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del model, state, step, _state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound = train_bounds_of(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    ratio = est / peak
+    log(f"dryrun 15b: {cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ} on the 1x1 "
+        f"host mesh: argument {acc['argument_size_in_bytes'] / 1e9:.4f} GB + "
+        f"temp {acc['temp_size_in_bytes'] / 1e9:.4f} GB + output "
+        f"{acc['output_size_in_bytes'] / 1e9:.4f} GB = {est / 1e9:.4f} GB "
+        f"counted (trace {acc['lower_s']} s); one step on the card: peak "
+        f"{peak / 1e9:.4f} GB (torch.cuda.max_memory_allocated less the "
+        f"{base / 1e9:.3f} GB held before), loss {loss:.4f}; counted / "
+        f"measured {ratio:.4f} (must lie in [{FOOT_LO}, {FOOT_HI}])")
+    log(f"dryrun 15b: counted flops {acc['flops']:.6g} beside phase 14's "
+        f"train_bounds {bound:.6g} ({acc['flops'] / bound:.4f}x); "
+        f"{acc['collective_count']} collectives on the 1x1 mesh")
+    if not FOOT_LO <= ratio <= FOOT_HI:
+        raise AssertionError(f"15b: counted footprint {est} vs measured peak "
+                             f"{peak}: ratio {ratio}")
+    if acc["collective_count"]:
+        raise AssertionError("15b: the 1x1 mesh issued collectives")
+    return {"counted": {k: acc[k] for k in (
+        "argument_size_in_bytes", "temp_size_in_bytes",
+        "output_size_in_bytes", "flops", "lower_s")},
+        "counted_bytes": est, "peak_bytes": peak, "ratio": ratio,
+        "train_bounds_flops": bound, "loss": loss}
+
+
+def train_bounds_of(cfg, B: int, S: int) -> float:
+    """``train_bounds``' matmul operations of one step, from the config
+    (its parameter count, on the meta device)."""
+    from repro_torch.models import Model
+
+    return train_bounds(Model(cfg, device="meta"), cfg, B, S)["step_flops"]
+
+
+def dryrun_fleet(torch, np, kernels, cong, records_dir) -> dict:
+    """15c: the schedule's problem from the records, evaluated in the
+    card configuration (tol, pallas, compiled stepper), checked by the
+    oracle and against the numpy lockstep engine."""
+    from repro_torch.core import (ALGORITHMS, FleetEngine, PlacementConfig,
+                                  SolverConfig, check_plan, rightsize)
+    from repro_torch.kernels import place_step as kstep
+    from repro_torch.workload import DEFAULT_SCHEDULE, fleet_problem
+
+    problem, tasks = fleet_problem(DEFAULT_SCHEDULE,
+                                   dryrun_dir=str(records_dir))
+    sources = collections.Counter(t["source"] for t in tasks)
+    by_job = {t["name"]: t["source"] for t in tasks}
+    log(f"dryrun 15c: {len(tasks)} tasks, {dict(sources)}; from the records: "
+        f"{sorted(n for n, s in by_job.items() if s == 'dryrun')}; demands "
+        + "; ".join(f"{t['name']} {t['dem'].tolist()}" for t in tasks))
+    if by_job.get("day-serve-qwen") != "dryrun":
+        raise AssertionError("15c: day-serve-qwen did not come from a record")
+    engine = FleetEngine(solver=SolverConfig(tol=TOL, iters=4000,
+                                             operator="pallas"),
+                         placement=PlacementConfig(engine="compiled"))
+    res, wall, launches, _last = tol_evaluate(torch, kernels, cong, engine,
+                                              [problem])
+    check_tol_launches(res, launches, "dryrun fleet")
+    entry = res.entries[0]
+    log(f"dryrun 15c: evaluate {wall:.3f} s: congestion_lp launches "
+        f"{launches['congestion_many']}, place_step launches "
+        f"{launches['place_step']}; lb {entry['lb']:.6f}, costs "
+        + " ".join(f"{a}={c:.6f}" for a, c in entry["costs"].items()))
+    prot = protocol_against_numpy(torch, np, kernels, kstep, res,
+                                  "dryrun fleet")
+    violations = []
+    for algo in ALGORITHMS:
+        sol = rightsize(problem, algo, check=False,
+                        lp_result=res.lp_results[0])
+        violations += [f"{algo}: {v}" for v in check_plan(problem, sol)]
+    log(f"dryrun 15c: {prot['calls']} protocol calls, compiled and numpy "
+        f"lockstep placements equal, costs equal the evaluate's; check_plan "
+        f"on {len(ALGORITHMS)} plans: {len(violations)} violations")
+    if violations:
+        raise AssertionError("15c: " + "; ".join(violations[:10]))
+    return {"tasks": len(tasks), "sources": dict(sources), "launches": launches,
+            "wall_s": wall, "entry": entry, "violations": 0}
+
+
+def dryrun_phase(torch, np, kernels, cong, report, cells) -> dict:
+    """Phase 15: the dry-run's records (15a, from ``cells``, started after
+    the build), its estimate against the card (15b), the rightsizing from
+    the records (15c)."""
+    t_phase = time.perf_counter()
+    out = {"records": cells.join()}
+    t_b = time.perf_counter()
+    out["estimate"] = dryrun_against_card(torch)
+    t_c = time.perf_counter()
+    out["fleet"] = dryrun_fleet(torch, np, kernels, cong, cells.out_dir)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"dryrun: phase 15 took {out['phase_s']:.1f} s (15a "
+        f"{t_b - t_phase:.1f} s, 15b {t_c - t_b:.1f} s, 15c "
+        f"{time.perf_counter() - t_c:.1f} s)")
+    report["dryrun"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--phase", type=int, choices=[15], default=None,
+                    help="run phases 1, 2 and this one only (no kernels "
+                         "line)")
     args = ap.parse_args(argv)
 
     import os
@@ -3051,6 +3373,13 @@ def main(argv=None) -> int:
     for name, text in logs.items():
         for row in ptxas_summary(text):
             log(f"build: {name}.cu {row}")
+
+    # 15a starts here and runs beside phases 3-12 (see DryrunCells)
+    cells = DryrunCells(HERE / "build" / "dryrun")
+    RUNNING.append(cells)
+    if args.phase == 15:
+        dryrun_phase(torch, np, kernels, cong, report, cells)
+        return finish(torch, args, report, card, None)
 
     # 3. edges
     err = edge_checks(torch, ref, cong, fit, dev)
@@ -3384,11 +3713,19 @@ def main(argv=None) -> int:
     kinfo["congestion_lp"]["phase12_ms"] = stoch["apply"]["ms"]
     kinfo["place_step"]["phase12_ms"] = stoch["place_step"]["ms"]
 
-    # 13. the LM serving path (no kernel of its own)
+    # 13. the LM serving path (no kernel of its own), 14. the LM training
+    # path (no kernel of its own); 15a's processes wait meanwhile
+    cells.pause()
     lm_phase(torch, report)
-
-    # 14. the LM training path (no kernel of its own)
     train_phase(torch, report)
+    cells.resume()
+
+    # 15. the LM dry-run, and the schedule rightsized from its records
+    dr = dryrun_phase(torch, np, kernels, cong, report, cells)
+    for name, key in (("congestion_many", "congestion_many"),
+                      ("congestion_lp", "congestion_many"),
+                      ("place_step", "place_step")):
+        kinfo[name]["phase15_launches"] = dr["fleet"]["launches"][key]
 
     # the congestion kernel's one counter counts both of its entries; the
     # main path launches it only through congestion_lp
@@ -3414,21 +3751,36 @@ def main(argv=None) -> int:
                                               "phase10_ms",
                                               "phase11_launches",
                                               "phase12_launches",
-                                              "phase12_ms")
+                                              "phase12_ms",
+                                              "phase15_launches")
             if key in kinfo[name]}}
         for name in SOURCES]}
     report["kernels"] = kinfo
+    return finish(torch, args, report, card, line)
+
+
+def finish(torch, args, report, card, line) -> int:
+    """Write the report, then the result lines: the card, the kernels line
+    (none when one phase ran alone) and the last line."""
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1, default=float))
     # the result lines carry no time stamp: they are read as they are
     print(card)
-    print(json.dumps(line))
+    if line is not None:
+        print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
+RUNNING: list = []               # DryrunCells to stop when main ends
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for c in RUNNING:
+            c.kill()

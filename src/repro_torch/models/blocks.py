@@ -6,8 +6,9 @@ Ported from ``repro.models.blocks``.  The reference's ``init_block`` is
 module's ``forward`` and ``block_decode`` its ``decode``; ``init_block_cache``
 keeps its name.  Parameters keep the reference's names and layouts (``wq``
 (d, H, hd), ``wo`` (H, hd, d), ...), so carrying weights across is a copy.
-The reference's sharding hints (``constrain``) have nothing to do on one card
-and are left out.
+The reference's sharding hints (``sharding.ctx.constrain``) sit at its call
+sites: the dry-run's DTensors are redistributed there; without a mesh
+context (one card) they return their input.
 
 Block layout conventions (pre-norm residual throughout):
   attn   : x += Attn(norm(x));  x += MLP_or_MoE(norm(x))
@@ -28,6 +29,7 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv as rwkv_mod
+from ..sharding.ctx import constrain, shard_local
 from .config import ModelConfig, SubBlock
 from .layers import gated_mlp, gelu, init_dense, mrope, rms_norm, rope
 
@@ -112,9 +114,12 @@ def _attention_tr(x, p: Attention, cfg: ModelConfig, window, theta,
     if G > 1:
         k = torch.repeat_interleave(k, G, dim=2)
         v = torch.repeat_interleave(v, G, dim=2)
-    out = attn_mod.streaming_attention(
-        q, k, v, window=window, causal=causal,
-        attn_softcap=cfg.attn_softcap)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "heads", None)
+    v = constrain(v, "batch", None, "heads", None)
+    out = shard_local(attn_mod.streaming_attention, q, k, v, window=window,
+                      causal=causal, attn_softcap=cfg.attn_softcap)
+    out = constrain(out, "batch", None, "heads", None)
     return torch.einsum("bshk,hkd->bsd", out, p.wo), kv_cache
 
 
@@ -128,9 +133,12 @@ def _cross_attention_tr(x, p: Attention, cfg: ModelConfig, enc_out):
     if G > 1:
         k_enc = torch.repeat_interleave(k_enc, G, dim=2)
         v_enc = torch.repeat_interleave(v_enc, G, dim=2)
-    out = attn_mod.streaming_attention(
-        q, k_enc, v_enc, window=-1, causal=False,
-        attn_softcap=cfg.attn_softcap)
+    q = constrain(q, "batch", None, "heads", None)
+    k_enc = constrain(k_enc, "batch", None, "heads", None)
+    v_enc = constrain(v_enc, "batch", None, "heads", None)
+    out = shard_local(attn_mod.streaming_attention, q, k_enc, v_enc,
+                      window=-1, causal=False, attn_softcap=cfg.attn_softcap)
+    out = constrain(out, "batch", None, "heads", None)
     return torch.einsum("bshk,hkd->bsd", out, p.wo)
 
 

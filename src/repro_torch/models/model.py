@@ -24,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..sharding.ctx import constrain
 from . import blocks as blocks_mod
 from .config import (GLOBAL_WINDOW, ModelConfig, SubBlock, segment_layers,
                      torch_dtype)
@@ -211,7 +212,14 @@ def forward_train(model: Model, batch, remat: bool = False):
 def _xent_chunk(x, embed, labels, cfg: ModelConfig):
     """x: (B, C, d); labels: (B, C), -1 where none. Returns (sum_loss,
     count)."""
-    logits = _logits(x, embed, cfg)
+    # hints the reference does without.  XLA reduces a vocabulary-sharded
+    # logsumexp in partial sums; DTensor has no such rule and, left alone,
+    # gathers the chunk's whole logits, batch included, onto every device.
+    # So: the batch stays sharded, the embedding is gathered over its model
+    # dimension, and each device gathers only its own rows' logits
+    x = constrain(x, "batch", None, None)
+    embed = constrain(embed, "model", None)
+    logits = constrain(_logits(x, embed, cfg), "batch", None, None)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1,
                       torch.clamp_min(labels, 0)[..., None].long())[..., 0]
@@ -297,19 +305,25 @@ def _format_attn_cache(kv, sub: SubBlock, cfg: ModelConfig, S: int,
     """Pack full-sequence K/V into ring-buffer cache layout: entry for
     position p lives at slot p % cache_len."""
     k_full, v_full = kv
-    B, dev = k_full.shape[0], k_full.device
+    dev = k_full.device
     cl = sub_cache_len(sub, max_len)
     take = min(S, cl)
     pos_tail = torch.arange(S - take, S, dtype=torch.int32, device=dev)
     slots = torch.remainder(pos_tail, cl).long()
-    shape = (B, cl, cfg.num_kv_heads, cfg.head_dim)
-    kc = torch.zeros(shape, dtype=dtype, device=dev)
-    vc = torch.zeros(shape, dtype=dtype, device=dev)
-    kc[:, slots] = k_full[:, S - take:].to(dtype)
-    vc[:, slots] = v_full[:, S - take:].to(dtype)
+
+    def ring(x):
+        # moves only: the last cl positions rotated to their slots, or the
+        # S < cl positions in slots 0..S-1 followed by empty ones (a scatter
+        # would do the same; DTensor has no sharding rule for it)
+        x = x[:, S - take:].to(dtype)
+        if take == cl:
+            return torch.roll(x, shifts=S % cl, dims=1)
+        return torch.cat([x, x.new_zeros((x.shape[0], cl - take)
+                                          + x.shape[2:])], dim=1)
+
     sp = torch.full((cl,), -1, dtype=torch.int32, device=dev)
     sp[slots] = pos_tail
-    return {"k": kc, "v": vc, "slot_pos": sp}
+    return {"k": ring(k_full), "v": ring(v_full), "slot_pos": sp}
 
 
 @torch.no_grad()

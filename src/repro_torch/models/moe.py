@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..sharding.ctx import constrain
 from .layers import gelu, init_dense
 
 __all__ = ["moe_mlp", "MoE", "router_capacity"]
@@ -132,14 +133,20 @@ def moe_mlp(x, params: MoE, *, top_k: int, capacity_factor: float = 1.25):
     logits = xg.float() @ params.router                     # (G, N, E)
     probs = torch.softmax(logits, dim=-1)
     buf, meta = _dispatch(xg, probs, top_k, C)              # (G, E, C, d)
+    buf = constrain(buf, "batch", "model", None, None)
 
     gate = gelu(torch.einsum("gecd,edf->gecf", buf, params.w_gate))
     up = torch.einsum("gecd,edf->gecf", buf, params.w_up)
     out_buf = torch.einsum("gecf,efd->gecd", gate * up, params.w_down)
+    out_buf = constrain(out_buf, "batch", "model", None, None)
     out = _combine(out_buf.reshape(G, E * C, d), meta, N)
 
     me = probs.reshape(-1, E).mean(dim=0)
-    ce = torch.bincount(meta[5].reshape(-1), minlength=E).float() \
+    # expert counts as the reference's .at[].add(1.0): a scatter-add, which
+    # DTensor can shard (it has no rule for bincount)
+    flat_e = meta[5].reshape(-1)
+    ce = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.float32)) \
         / (G * N * top_k)
     aux = E * torch.sum(me * ce)
     return out.reshape(orig_shape), aux

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..sharding.ctx import constrain, shard_local
 from .layers import init_dense
 
 __all__ = ["RGLRU", "rglru_scan", "rglru_step", "temporal_conv",
@@ -89,13 +90,22 @@ def _gates(x, params):
 def rglru_scan(x, params):
     """Full-sequence RG-LRU: x (B, S, W) -> (out (B, S, W), h_final fp32).
     h_0 = 0; a sequential float32 scan over time."""
+    x = constrain(x, "batch", None, "model")
     a, b = _gates(x, params)  # both (B, S, W) fp32
+    # elementwise over batch and channels: each device scans its own shards
+    h, h_t = shard_local(_scan, a, b, outputs=2)
+    return h.to(x.dtype), h_t[:, 0]
+
+
+def _scan(a, b):
+    """h_t = a_t * h_{t-1} + b_t over time from h_0 = 0, on (B, S, W):
+    returns (h, the last h as (B, 1, W))."""
     h = torch.empty_like(b)
     h_t = torch.zeros_like(b[:, 0])
-    for t in range(x.shape[1]):
+    for t in range(b.shape[1]):
         h_t = a[:, t] * h_t + b[:, t]
         h[:, t] = h_t
-    return h.to(x.dtype), h_t
+    return h, h_t[:, None]
 
 
 def rglru_step(x_t, h_prev, params):

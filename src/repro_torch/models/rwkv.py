@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding.ctx import constrain, shard_local
 from .layers import init_dense
 
 __all__ = ["TimeMix", "ChannelMix", "timemix_scan", "timemix_step",
@@ -102,7 +103,11 @@ def _projections(x, xs, p, head_dim: int):
     wx = _mix(x, xs, p.mu_w).float() @ p.w_decay
     w = torch.exp(-torch.exp(wx + p.decay_bias))  # (B, S, d) in (0, 1)
     shp = (B, S, H, head_dim)
-    return r.reshape(shp), k.reshape(shp), v.reshape(shp), g, w.reshape(shp)
+    # keep the head axis sharded over 'model' through the recurrence
+    return tuple(
+        constrain(a.reshape(shp), "batch", None, "heads", None)
+        for a in (r, k, v)
+    ) + (g, constrain(w.reshape(shp), "batch", None, "heads", None))
 
 
 def _group_norm(y, scale):
@@ -124,6 +129,20 @@ def _wkv(S_state, r_t, k_t, v_t, w_t, u):
     return y, S_new
 
 
+def _wkv_scan(r, k, v, w, u):
+    """The recurrence over time on (B, S, H, N) inputs, from a zero state;
+    ``u`` is the bonus broadcast to that shape.  Returns (y (B, S, H, N),
+    the final state as (B, 1, H, N * N)), both float32."""
+    B, S, H, N = r.shape
+    S_state = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(S):
+        y_t, S_state = _wkv(S_state, r[:, t], k[:, t], v[:, t], w[:, t],
+                            u[0, 0])
+        ys.append(y_t)
+    return torch.stack(ys, dim=1), S_state.reshape(B, 1, H, N * N)
+
+
 def timemix_scan(x, x_prev, p, head_dim: int):
     """Full-sequence time-mix.  x: (B, S, d); x_prev: (B, d).
     Returns (out (B, S, d), S_final (B, H, N, N), x_last (B, d))."""
@@ -131,14 +150,12 @@ def timemix_scan(x, x_prev, p, head_dim: int):
     H = d // head_dim
     xs = _shift(x, x_prev)
     r, k, v, g, w = _projections(x, xs, p, head_dim)
-    S_state = torch.zeros((B, H, head_dim, head_dim), dtype=torch.float32,
-                          device=x.device)
-    ys = []
-    for t in range(S):
-        y_t, S_state = _wkv(S_state, r[:, t], k[:, t], v[:, t], w[:, t],
-                            p.u_bonus)
-        ys.append(y_t)
-    y = torch.stack(ys, dim=1)  # (B, S, H, N)
+    # the bonus laid out like r (a view): the scan runs on each device's
+    # batch rows and heads alone (``shard_local``)
+    u = constrain(p.u_bonus.expand(B, S, H, head_dim), "batch", None,
+                  "heads", None)
+    y, S_state = shard_local(_wkv_scan, r, k, v, w, u, outputs=2)
+    S_state = S_state.reshape(B, H, head_dim, head_dim)
     y = _group_norm(y, p.ln_x).to(x.dtype)
     out = (y * F.silu(g)) @ p.w_out
     return out, S_state, x[:, -1, :]

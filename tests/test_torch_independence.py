@@ -62,7 +62,10 @@ def test_package_has_the_slice_modules():
                  "launch/train.py", "train/__init__.py",
                  "train/optimizer.py", "train/compression.py",
                  "train/data.py", "train/train_step.py",
-                 "train/checkpoint.py", "train/fault.py"):
+                 "train/checkpoint.py", "train/fault.py",
+                 "launch/dryrun.py", "launch/hlo_cost.py", "launch/mesh.py",
+                 "sharding/__init__.py", "sharding/ctx.py",
+                 "sharding/partitioning.py"):
         assert name in rel, name
     for src in ("congestion.cu", "fit.cu", "place_step.cu"):
         assert (PKG / "kernels" / "csrc" / src).is_file(), src
@@ -78,6 +81,12 @@ def test_package_has_the_slice_modules():
 
     assert callable(train.run) and callable(forward_train)
     assert callable(loss_fn)
+    from repro_torch.launch import dryrun, hlo_cost, mesh
+    from repro_torch import sharding
+
+    assert callable(dryrun.run_cell) and callable(dryrun.main)
+    assert callable(hlo_cost.analyze) and callable(mesh.make_production_mesh)
+    assert callable(sharding.param_specs) and callable(sharding.tree_named)
 
 
 @pytest.mark.parametrize("path", MODULES + CARD_SIDE,
@@ -135,7 +144,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from repro_torch.configs import smoke_config
     from repro_torch.launch import rightsize as cli
     from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as lm_train
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import Model, init_params
     from repro_torch.train import checkpoint
     from repro_torch.serve import RightsizingService
@@ -176,6 +187,10 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
             {}, smoke_config("rwkv6-7b")),
         lambda: lm_train.run(train_args),
         lambda: checkpoint.restore(ckpt_dir, Model(cfg, "cpu")),
+        lambda: dryrun.main(["--arch", "qwen2.5-3b", "--shape",
+                             "decode_32k", "--out", str(tmp_path / "dr")]),
+        lambda: dryrun.run_cell("qwen2.5-3b", "decode_32k", False),
+        lambda: make_host_mesh(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -188,6 +203,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                            StochasticConfig(scenarios=2),
                            device="cpu").lp_dispatches == 1
     assert not (tmp_path / "run").exists()  # the run raised before training
+    assert not (tmp_path / "dr").exists()  # the dry-run raised before a cell
     assert checkpoint.restore(ckpt_dir, Model(cfg, "cpu"),
                               device="cpu")[1] == 1
     model, _state, hist = lm_train.run(train_args + ["--device", "cpu"])

@@ -14,7 +14,7 @@ B = 4, S = 32, loss chunk 64, remat on), in float32.
   5e-5, the reference test's bound), and against the reference's microbatch
   4 step (loss within 1e-5, parameters within 5e-5).  The reference's
   microbatch path raises on a config with M-RoPE positions (a transpose of
-  four axes on its (3, B, S) array; ROADMAP Queue 3 item 6), so on
+  four axes on its (3, B, S) array; ROADMAP Queue 3 item 7), so on
   qwen2-vl-2b the port is held against the reference's accumulation
   written out: ``jax.value_and_grad`` of its ``loss_fn`` on each contiguous
   quarter, summed in float32, averaged, then its ``adamw_update``.
