@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json] [--phase 15]
+    python3 chip_smoke.py [--out results.json] [--phase 15|16]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -215,10 +215,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    then the rightsizer on its records, which runs two.  (a) ``python -m
    repro_torch.launch.dryrun`` in one process per cell of ``DRYRUN_CELLS``
    (qwen2.5-3b's train_4k, prefill_32k and decode_32k on 16x16 and
-   2x16x16, and on 16x16 the other schedule cells the ``--all`` run
-   passed), six at once on a thread started after phase 2, beside phases
-   3-12 (host work on otherwise idle cores; stopped during phases 13-14,
-   whose decode readings are host-bound), into ``build/dryrun/``; per
+   2x16x16, and on 16x16 every other cell a schedule job reads, rwkv6-7b's
+   train_4k among them), six at once on a thread started after phase 2,
+   beside phases 3-12 (host work on otherwise idle cores; stopped during
+   phases 13, 14 and 16, whose decode readings are host-bound), into ``build/dryrun/``; per
    record the per-device argument, temp and output GB, FLOPs, collective
    bytes by kind and trace seconds.  (b) The dry-run's
    accounting of phase 14's step (qwen2.5-3b, B = 4, S = 2048, its
@@ -226,11 +226,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    step run on the card: argument + temp + output must lie within [0.9, 2]
    times ``torch.cuda.max_memory_allocated``; the counted FLOPs beside
    ``train_bounds``'.  (c) ``workload.fleet_problem(DEFAULT_SCHEDULE,
-   dryrun_dir="build/dryrun")`` (``day-serve-qwen`` from its record)
-   through ``FleetEngine().evaluate`` in the card configuration (tol,
-   ``pallas``, the compiled stepper): launches checked, every placement
-   call equal to the numpy lockstep engine's, every algorithm's plan clean
-   under ``check_plan``.  ``--phase 15`` runs phases 1, 2 and 15 only.
+   dryrun_dir="build/dryrun")`` through ``FleetEngine().evaluate`` in the
+   card configuration (tol, ``pallas``, the compiled stepper): every one of
+   the ten jobs' demands from a record (each job's source printed),
+   launches checked, every placement call equal to the numpy lockstep
+   engine's, every algorithm's plan clean under ``check_plan``.  ``--phase
+   15`` runs phases 1, 2 and 15 only.
+16. the recurrent families through the WKV and linear-scan kernels
+   (``kernels/csrc/wkv.cu``, ``scan.cu``), which replace no Pallas kernel
+   but the reference's compiled time loops; it runs after phase 14, while
+   15a's processes wait.  First each kernel, forward and backward, against
+   its plain loop on the card at full-width layer shapes (WKV at B = 4, H =
+   64, N = 64 in float32 and bfloat16, a hundredth of the decays exactly 0;
+   the scan at B = 4, W = 4096, bit-equal), S = 512, then timed (kernel,
+   plain loop, bound, and the WKV's serial chain of S barrier steps, 4S
+   backward, at ``chain_ns_per_step``; the kernels alone at S = 4100 and 2048
+   too).  (a) ``rwkv6-7b`` (7.786 B bf16 parameters), then
+   ``recurrentgemma-9b`` (9.396 B), at full width from a seeded generator
+   through ``launch.serve``'s ``make_batch``/``generate``: B = 4, a
+   4100-token prompt (past recurrentgemma's 2048-token window), 16 greedy
+   tokens, cold and warm; launch counts set to 0 just before each call and
+   read just after (one ``wkv`` a rwkv layer, one ``linear_scan`` an RG-LRU
+   layer); prefill s and tok/s, decode ms/step, peak memory.  (b) both in
+   float32 at B = 1: prefill 4100 tokens, 8 greedy decode steps (the O(1)
+   step path), steps 0, 3 and 7 within 5e-3 of a fresh prefill.  (c)
+   ``rwkv6-7b`` cut to 8 layers (``--layers``, the only cut: float32 AdamW
+   state of 32 layers does not fit the card) through ``launch.train.run``
+   (B = 4, S = 2048, 10 steps, remat): losses finite and falling, one
+   ``wkv_backward`` a layer a step; then ``recurrentgemma-9b`` cut to 6
+   layers through ``make_train_step`` for 3 steps, one
+   ``linear_scan_backward`` an RG-LRU layer a step.  Phases 13c and 14b run
+   the recurrent smoke models through these kernels.  ``--phase 16`` runs
+   phases 1, 2 and 16 only.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -287,6 +314,17 @@ SOURCES = {
     # of the reference's stepper with its scorer, ops.fit_scores_step
     "place_step": ("src/repro_torch/kernels/csrc/place_step.cu",
                    "src/repro/core/place_step.py:168"),
+    # the recurrences replace no Pallas kernel: the reference compiles
+    # these time loops (phase 16)
+    "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
+            "none — src/repro/models/rwkv.py:116 lax.scan"),
+    "wkv_backward": ("src/repro_torch/kernels/csrc/wkv.cu",
+                     "none — src/repro/models/rwkv.py:116 lax.scan"),
+    "linear_scan": ("src/repro_torch/kernels/csrc/scan.cu",
+                    "none — src/repro/models/rglru.py:84 associative_scan"),
+    "linear_scan_backward": (
+        "src/repro_torch/kernels/csrc/scan.cu",
+        "none — src/repro/models/rglru.py:84 associative_scan"),
 }
 
 
@@ -2635,12 +2673,21 @@ def lm_archs_card_vs_cpu(torch) -> dict:
 
     from repro_torch.configs import ARCHS
 
+    from repro_torch import kernels
+
     out = {}
     for arch in sorted(ARCHS):
+        kernels.reset_launch_counts()
         r = card_vs_cpu(arch, torch.device("cuda"))
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
         log(f"lm 13c {arch}: card vs CPU max |diff| logits {r['logits']:.3e}, "
             f"states {r['states']:.3e}; MoE dispatches {r['moe_dispatches']} "
-            f"(slots equal: {r['moe_equal']}, dropped {r['dropped']})")
+            f"(slots equal: {r['moe_equal']}, dropped {r['dropped']}); "
+            f"kernel launches {launches}")
+        rec = REC_KERNEL.get(arch)
+        if rec and not launches.get(rec, 0) > 0:
+            raise AssertionError(f"13c {arch}: the card run did not go "
+                                 f"through {rec}: {launches}")
         if not (r["logits"] <= LM_CARD_ATOL and r["states"] <= LM_CARD_ATOL):
             raise AssertionError(f"13c {arch}: card vs CPU logits "
                                  f"{r['logits']}, states {r['states']}")
@@ -2874,13 +2921,24 @@ def train_archs_card_vs_cpu(torch, dev) -> dict:
 
     from repro_torch.configs import ARCHS
 
+    from repro_torch import kernels
+
     out = {}
     for arch in sorted(ARCHS):
+        kernels.reset_launch_counts()
         r = train_card_vs_cpu(arch, dev)
+        r["launches"] = {k: v for k, v in kernels.launch_counts().items()
+                         if v}
         log(f"train 14b {arch}: card vs CPU |loss diff| {r['loss']:.3e}, aux "
             f"{r['aux']:.3e}, gradients at most {r['grad_rel']:.3e} of their "
             f"max |value| ({r['grad_worst']}); MoE dispatches "
-            f"{r['moe_dispatches']} (slots equal: {r['moe_equal']})")
+            f"{r['moe_dispatches']} (slots equal: {r['moe_equal']}); kernel "
+            f"launches {r['launches']}")
+        rec = REC_KERNEL.get(arch)
+        if rec and not (r["launches"].get(rec, 0) > 0
+                        and r["launches"].get(rec + "_backward", 0) > 0):
+            raise AssertionError(f"14b {arch}: the card run did not go "
+                                 f"through {rec}: {r['launches']}")
         if not (r["loss"] <= TRAIN_CARD_ATOL and r["aux"] <= TRAIN_CARD_ATOL
                 and r["grad_rel"] <= TRAIN_CARD_ATOL):
             raise AssertionError(f"14b {arch}: card vs CPU {r}")
@@ -3039,7 +3097,8 @@ DRYRUN_CELLS = [("granite-34b", "prefill_32k", "pod"),
                 ("gemma3-1b", "decode_32k", "pod"),
                 ("qwen2-vl-2b", "decode_32k", "pod"),
                 ("kimi-k2-1t-a32b", "decode_32k", "pod"),
-                ("recurrentgemma-9b", "long_500k", "pod")]
+                ("recurrentgemma-9b", "long_500k", "pod"),
+                ("rwkv6-7b", "train_4k", "pod")]
 DRYRUN_TIMEOUT = 900             # seconds for one cell's subprocess
 DRYRUN_WIDTH = 6                 # cells at once, beside the main process
 FOOT_LO, FOOT_HI = 0.9, 2.0      # 15b: counted footprint / measured peak
@@ -3111,8 +3170,8 @@ class DryrunCells:
 
     def pause(self):
         """Stop the running cells' processes (SIGSTOP) and start no more
-        until ``resume``: phases 13-14's host-bound readings (a decode step's
-        launches) are taken on a host of their own."""
+        until ``resume``: phases 13, 14 and 16's host-bound readings (a
+        decode step's launches) are taken on a host of their own."""
         import signal
 
         self.paused = True
@@ -3267,12 +3326,16 @@ def dryrun_fleet(torch, np, kernels, cong, records_dir) -> dict:
     problem, tasks = fleet_problem(DEFAULT_SCHEDULE,
                                    dryrun_dir=str(records_dir))
     sources = collections.Counter(t["source"] for t in tasks)
-    by_job = {t["name"]: t["source"] for t in tasks}
-    log(f"dryrun 15c: {len(tasks)} tasks, {dict(sources)}; from the records: "
-        f"{sorted(n for n, s in by_job.items() if s == 'dryrun')}; demands "
+    by_job = {t["name"].split("/")[0]: t["source"] for t in tasks}
+    log(f"dryrun 15c: {len(tasks)} tasks, {dict(sources)}; demands "
         + "; ".join(f"{t['name']} {t['dem'].tolist()}" for t in tasks))
-    if by_job.get("day-serve-qwen") != "dryrun":
-        raise AssertionError("15c: day-serve-qwen did not come from a record")
+    for job in DEFAULT_SCHEDULE:
+        log(f"dryrun 15c: job {job.name} ({job.arch} {job.shape}): demand "
+            f"from {by_job.get(job.name)}")
+    builtin = sorted(n for n, s in by_job.items() if s != "dryrun")
+    if builtin or len(by_job) != len(DEFAULT_SCHEDULE):
+        raise AssertionError(f"15c: jobs {builtin} did not come from a "
+                             f"record")
     engine = FleetEngine(solver=SolverConfig(tol=TOL, iters=4000,
                                              operator="pallas"),
                          placement=PlacementConfig(engine="compiled"))
@@ -3318,11 +3381,385 @@ def dryrun_phase(torch, np, kernels, cong, report, cells) -> dict:
     return out
 
 
+# --- phase 16: the recurrent families ----------------------------------------
+
+REC_ARCHS = ("rwkv6-7b", "recurrentgemma-9b")
+REC_KERNEL = {"rwkv6-7b": "wkv", "recurrentgemma-9b": "linear_scan"}
+REC_MIXER = {"rwkv6-7b": "rwkv", "recurrentgemma-9b": "rglru"}
+# 16c: the depth cuts (num_layers only); float32 AdamW state of all 32 or 38
+# layers does not fit one card
+REC_TRAIN_LAYERS = {"rwkv6-7b": 8, "recurrentgemma-9b": 6}
+REC_TRAIN_STEPS = {"rwkv6-7b": 10, "recurrentgemma-9b": 3}
+REC_FWD_SEQ = LM_PROMPT          # 16a's prefill: the forwards' checks
+REC_BWD_SEQ = TRAIN_SEQ          # 16c's step: the backwards' checks
+WKV_SHAPE = (4, 64, 64)          # B, H, N of rwkv6-7b's layer at batch 4
+SCAN_SHAPE = (4, 4096)           # B, W of recurrentgemma-9b's layer
+# float32 outputs against the plain loop: sums in another order and fused
+# multiply-adds, relative to the output's max |value| (13c/14b's bound);
+# bfloat16 outputs: the same, plus two bfloat16 roundings of the value
+REC_F32_RTOL = 1e-4
+REC_BF16_RTOL = 2.0 ** -7
+
+
+def close_rel(a, b, rtol: float, what: str) -> tuple[float, float]:
+    """Hold ``a`` against the plain ``b``: |a - b| <= rtol |b| + REC_F32_RTOL
+    max |b| elementwise; returns max |a - b| and that over max |b|."""
+    a64, b64 = a.double(), b.double()
+    top = max(float(b64.abs().max()), 1e-300)
+    diff = (a64 - b64).abs()
+    bad = int((diff > rtol * b64.abs() + REC_F32_RTOL * top).sum())
+    err = float(diff.max())
+    if bad or not bool(a64.isfinite().all()):
+        raise AssertionError(f"{what}: {bad} elements off (max |diff| "
+                             f"{err:.3e}, {err / top:.3e} of max |value|)")
+    return err, err / top
+
+
+def wkv_inputs(torch, dev, B, S, H, N, dtype, seed: int):
+    """r, k, v (dtype), w, u (float32) and the gradients gy, gs from a
+    seeded generator: w = exp(-exp(x)) with x ~ N(-3, 1.5), and one entry in
+    a hundred at x = 5, where w underflows to exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    r, k, v = (randn(B, S, H, N, scale=0.5).to(dtype) for _ in range(3))
+    x = randn(B, S, H, N, scale=1.5) - 3.0
+    x = torch.where(torch.rand(x.shape, generator=g, device=dev) < 0.01,
+                    torch.full_like(x, 5.0), x)
+    w = torch.exp(-torch.exp(x))
+    u = randn(H, N, scale=0.5)
+    gy = randn(B, S, H, N)
+    gs = randn(B, H, N, N, scale=0.1)
+    return (r, k, v, w, u), gy, gs
+
+
+def recurrent_kernel_checks(torch, dev) -> dict:
+    """The recurrence kernels against their plain versions on the card, at
+    the shapes phase 16's path gives them: the forwards at 16a's prefill
+    (S = REC_FWD_SEQ), the backwards at 16c's step (S = REC_BWD_SEQ), at
+    full-width layer shapes. ``wkv`` in float32 (16b) and bfloat16 (16a,
+    16c) within REC_F32_RTOL / REC_BF16_RTOL, the linear scan bit-equal (both
+    round the multiply and the add apart); then each timed in bfloat16 or
+    float32 as the model runs it (kernel, plain version, bound)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import scan as kscan
+    from repro_torch.kernels import wkv as kwkv
+
+    B, H, N = WKV_SHAPE
+    Sf, Sb = REC_FWD_SEQ, REC_BWD_SEQ
+    errs = {name: [0.0, 0.0] for name in ("wkv", "wkv_backward")}
+
+    def hold(name, a, b, rtol, what):
+        got = close_rel(a, b, rtol, what)
+        errs[name] = [max(x, y) for x, y in zip(errs[name], got)]
+        return got[1]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        ins, _, _ = wkv_inputs(torch, dev, B, Sf, H, N, dtype, seed=3)
+        zeros = int((ins[3] == 0).sum())
+        y, st = kwkv.wkv_forward(*ins)
+        y0, st0 = ref.wkv_ref(*ins)
+        torch.cuda.synchronize()
+        e = max(hold("wkv", y, y0, 0.0, f"wkv y {dtype}"),
+                hold("wkv", st, st0, 0.0, f"wkv state {dtype}"))
+        del ins, y, st, y0, st0
+        ins, gy, gs = wkv_inputs(torch, dev, B, Sb, H, N, dtype, seed=3)
+        grads = kwkv.wkv_backward_launch(*ins, gy, gs)
+        plain = ref.wkv_backward_ref(*ins, gy, gs)
+        eb = 0.0
+        for name, a, b in zip(("gr", "gk", "gv", "gw", "gu"), grads, plain):
+            rtol = REC_BF16_RTOL if a.dtype == torch.bfloat16 else 0.0
+            eb = max(eb, hold("wkv_backward", a, b, rtol,
+                              f"wkv {name} {dtype}"))
+        log(f"recurrent: wkv {dtype} B={B} H={H} N={N}: forward at S={Sf} "
+            f"({zeros} decays exactly 0) max rel {e:.3e}, backward at "
+            f"S={Sb} max rel {eb:.3e} against the plain loops")
+        del ins, gy, gs, grads, plain
+    # timing in the model's bfloat16
+    chain_ns = chain_ns_per_step(torch, dev)
+    elt = 2
+    out = {}
+    for name, S, steps, seed in (("wkv", Sf, Sf, 4),
+                                 ("wkv_backward", Sb, 4 * Sb, 4)):
+        ins, gy, gs = wkv_inputs(torch, dev, B, S, H, N, torch.bfloat16,
+                                 seed)
+        if name == "wkv":
+            fn, plain = (lambda: kwkv.wkv_forward(*ins),
+                         lambda: ref.wkv_ref(*ins))
+            nbytes = (B * S * H * N * (3 * elt + 4 + 4) + H * N * 4
+                      + B * H * N * N * 4)
+            ops = 5.0 * B * S * H * N * N
+        else:
+            fn, plain = (lambda: kwkv.wkv_backward_launch(*ins, gy, gs),
+                         lambda: ref.wkv_backward_ref(*ins, gy, gs))
+            nbytes = (B * S * H * N * (6 * elt + 12) + 2 * B * H * N * N * 4
+                      + 2 * H * N * 4)
+            ops = 11.0 * B * S * H * N * N
+        b_ms, b_by = bound(nbytes, ops)
+        out[name] = {
+            "shape": {"B": B, "S": S, "H": H, "N": N, "dtype": "bfloat16"},
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "ms": device_ms(torch, fn, reps=20, warmup=3),
+            "plain_ms": device_ms(torch, plain, reps=2, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "call_ms": cuda_ms(torch, fn, reps=20, warmup=2),
+            "latency_bound_ms": steps * chain_ns * 1e-6}
+        del ins, gy, gs, fn, plain
+    # the linear scan (float32 gates): bit-equal to the plain loop
+    Bs, W = SCAN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(5)
+    for name, S in (("linear_scan", Sf), ("linear_scan_backward", Sb)):
+        a = torch.rand((Bs, S, W), generator=g, device=dev)
+        b = torch.randn((Bs, S, W), generator=g, device=dev)
+        h = kscan.scan_forward(a, b)
+        n = Bs * S * W
+        if name == "linear_scan":
+            if not torch.equal(h, ref.linear_scan_ref(a, b)):
+                raise AssertionError("linear scan: kernel and plain loop "
+                                     "differ")
+            fn, plain = (lambda: kscan.scan_forward(a, b),
+                         lambda: ref.linear_scan_ref(a, b))
+            nbytes, ops = 3 * n * 4, 2.0 * n
+        else:
+            gh = torch.randn((Bs, S, W), generator=g, device=dev)
+            ga, gb = kscan.scan_backward(a, h, gh)
+            pa, pb = ref.linear_scan_backward_ref(a, h, gh)
+            if not (torch.equal(ga, pa) and torch.equal(gb, pb)):
+                raise AssertionError("linear scan backward: kernel and "
+                                     "plain loop differ")
+            del ga, gb, pa, pb
+            fn, plain = (lambda: kscan.scan_backward(a, h, gh),
+                         lambda: ref.linear_scan_backward_ref(a, h, gh))
+            nbytes, ops = 5 * n * 4, 3.0 * n
+        log(f"recurrent: {name} B={Bs} S={S} W={W}: bit-equal to the plain "
+            f"loop")
+        b_ms, b_by = bound(nbytes, ops)
+        out[name] = {
+            "shape": {"B": Bs, "S": S, "W": W, "dtype": "float32"},
+            "max_abs_err": 0.0, "max_rel_err": 0.0,
+            "ms": device_ms(torch, fn, reps=20, warmup=3),
+            "plain_ms": device_ms(torch, plain, reps=2, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "call_ms": cuda_ms(torch, fn, reps=20, warmup=2)}
+        del a, b, h, fn, plain
+    for name, info in out.items():
+        log(timing_line(name, info))
+        log(f"timing: {name} shape {info['shape']} max_rel_err "
+            f"{info['max_rel_err']:.3g}" + (
+                f" latency_bound_ms {info['latency_bound_ms']:.6f}"
+                if "latency_bound_ms" in info else ""))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rec_mixers(cfg, arch) -> int:
+    """The layers of ``cfg`` that run ``arch``'s recurrence (one kernel
+    launch each a call)."""
+    return sum(1 for kind, *_ in cfg.pattern if kind == REC_MIXER[arch])
+
+
+def rec_serve(torch, dev) -> dict:
+    """16a: rwkv6-7b, then recurrentgemma-9b, at full width in bf16 through
+    ``launch.serve``'s ``make_batch``/``generate`` (B = 4, a 4100-token
+    prompt, 16 greedy tokens; cold, then warm), launch counts set to 0 just
+    before the cold call and read just after."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import init_params
+
+    out = {}
+    for arch in REC_ARCHS:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        model = init_params(gen, cfg, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        batch = lm_serve.make_batch(cfg, LM_BATCH, LM_PROMPT, gen)
+        mixers = rec_mixers(cfg, arch)
+        runs = []
+        for call in ("cold", "warm"):
+            kernels.reset_launch_counts()
+            ids, info = lm_serve.generate(model, batch, LM_GEN)
+            counts = kernels.launch_counts()
+            if not info["finite"]:
+                raise AssertionError(f"16a {arch} {call}: non-finite logits")
+            if tuple(ids.shape) != (LM_BATCH, LM_GEN) or not bool(
+                    ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+                raise AssertionError(f"16a {arch} {call}: ids out of range")
+            if counts[REC_KERNEL[arch]] != mixers:
+                raise AssertionError(
+                    f"16a {arch}: {counts[REC_KERNEL[arch]]} launches of "
+                    f"{REC_KERNEL[arch]} for {mixers} {REC_MIXER[arch]} "
+                    f"layers")
+            run = {"call": call, "prefill_s": info["prefill_s"],
+                   "decode_s": info["decode_s"], "steps": info["steps"],
+                   "prefill_tok_s": LM_BATCH * LM_PROMPT / info["prefill_s"],
+                   "decode_ms_step": info["decode_s"] / info["steps"] * 1e3,
+                   "launches": {k: v for k, v in counts.items() if v},
+                   "ids_row0": ids[0].tolist()}
+            runs.append(run)
+            log(f"rec 16a {arch} {call}: prefill batch={LM_BATCH} "
+                f"len={LM_PROMPT} {run['prefill_s']:.3f} s "
+                f"({run['prefill_tok_s']:.1f} tok/s); decode {run['steps']} "
+                f"steps {run['decode_s']:.3f} s ({run['decode_ms_step']:.3f} "
+                f"ms/step); launches {run['launches']}; ids (row 0) "
+                f"{run['ids_row0']}")
+        if runs[0]["ids_row0"] != runs[1]["ids_row0"]:
+            raise AssertionError(f"16a {arch}: two greedy calls differ")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"rec 16a {arch}: {n_params} bf16 parameters initialized in "
+            f"{init_s:.2f} s; peak memory {peak / 1e9:.3f} GB "
+            f"(torch.cuda.max_memory_allocated; {base / 1e9:.3f} GB held "
+            f"before)")
+        out[arch] = {"params": n_params, "init_s": init_s,
+                     "peak_bytes": peak, "base_bytes": base, "runs": runs,
+                     "launches": runs[0]["launches"]}
+        del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rec_consistency_f32(torch, dev) -> dict:
+    """16b: both models in float32 at B = 1: prefill 4100 tokens, then 8
+    greedy decode steps (the O(1) step path), each at LM_PARITY_AT held
+    within 5e-3 of a fresh prefill (the kernels) of the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    out = {}
+    for arch in REC_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        model = init_params(gen, cfg, dev)
+        seq = torch.randint(0, cfg.vocab_size, (1, LM_PROMPT), generator=gen,
+                            device=dev)
+        steps = max(LM_PARITY_AT) + 1
+        logits, state = prefill(model, {"tokens": seq},
+                                max_len=LM_PROMPT + steps)
+        tok = torch.argmax(logits, dim=-1)
+        errs = {}
+        for j in range(steps):
+            logits, state = decode_step(model, state, tok)
+            seq = torch.cat([seq, tok[:, None]], dim=1)
+            if j in LM_PARITY_AT:
+                fresh, _ = prefill(model, {"tokens": seq},
+                                   max_len=seq.shape[1])
+                errs[j] = float((logits - fresh).abs().max())
+                log(f"rec 16b {arch}: decode step {j} (position "
+                    f"{LM_PROMPT + j}) against a fresh prefill of "
+                    f"{seq.shape[1]} tokens: max |diff| {errs[j]:.3e}")
+                if not errs[j] <= LM_PARITY_ATOL:
+                    raise AssertionError(f"16b {arch}: decode step {j} "
+                                         f"differs by {errs[j]}")
+                del fresh
+            tok = torch.argmax(logits, dim=-1)
+        out[arch] = errs
+        del model, state, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"max_abs_err": out, "atol": LM_PARITY_ATOL}
+
+
+def rec_train(torch, dev) -> dict:
+    """16c: rwkv6-7b cut to 8 layers, then recurrentgemma-9b cut to 6 (for
+    the scan's backward), at full width through ``launch.train.run`` (B = 4,
+    S = 2048, remat; its one checkpoint at the last step): finite, falling
+    losses, the backward kernels launched once a recurrent layer a step."""
+    import io
+    import shutil
+    import statistics
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as lm_train
+
+    out = {}
+    (HERE / "build").mkdir(exist_ok=True)
+    for arch in REC_ARCHS:
+        layers, steps = REC_TRAIN_LAYERS[arch], REC_TRAIN_STEPS[arch]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ckdir = tempfile.mkdtemp(prefix="train16c_", dir=HERE / "build")
+        try:
+            argv = ["--arch", arch, "--preset", "full", "--layers",
+                    str(layers), "--batch", str(TRAIN_BATCH), "--seq",
+                    str(TRAIN_SEQ), "--steps", str(steps), "--ckpt-every",
+                    str(steps), "--ckpt-dir", ckdir, "--device", str(dev)]
+            buf = io.StringIO()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with redirect_stdout(buf):
+                model, state, hist = lm_train.run(argv)
+            run_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        for row in buf.getvalue().splitlines():
+            log(f"rec 16c: | {row}")
+        losses, walls = hist["loss"], hist["wall_s"]
+        peak = torch.cuda.max_memory_allocated()
+        fwd, bwd = REC_KERNEL[arch], REC_KERNEL[arch] + "_backward"
+        log(f"rec 16c {arch} ({model.cfg.num_layers} layers, B={TRAIN_BATCH} "
+            f"S={TRAIN_SEQ}): losses {[round(x, 6) for x in losses]}; step s "
+            f"{[round(x, 3) for x in walls]} (warm median "
+            f"{statistics.median(walls[1:]):.3f}); peak memory "
+            f"{peak / 1e9:.3f} GB; launches {fwd} {counts[fwd]}, {bwd} "
+            f"{counts[bwd]}; run {run_s:.1f} s")
+        if not all(math.isfinite(x) for x in losses) or not (
+                losses[-1] < losses[0]):
+            raise AssertionError(f"16c {arch}: losses {losses}")
+        if (counts[bwd] != rec_mixers(model.cfg, arch) * len(losses)
+                or counts[fwd] <= 0):
+            raise AssertionError(f"16c {arch}: launches {counts}")
+        out[arch] = {"layers": model.cfg.num_layers, "losses": losses,
+                     "step_s": walls, "peak_bytes": peak, "run_s": run_s,
+                     "launches": {k: v for k, v in counts.items() if v}}
+        del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_phase(torch, report, dev) -> dict:
+    """Phase 16: the recurrent families (16a serving, 16b f32 prefill and
+    decode consistency, 16c training; each kernel against its plain
+    version)."""
+    t_phase = time.perf_counter()
+    out = {"kernels": recurrent_kernel_checks(torch, dev)}
+    t_a = time.perf_counter()
+    out["serve"] = rec_serve(torch, dev)
+    t_b = time.perf_counter()
+    out["consistency"] = rec_consistency_f32(torch, dev)
+    t_c = time.perf_counter()
+    out["train"] = rec_train(torch, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"rec: phase 16 took {out['phase_s']:.1f} s (kernels "
+        f"{t_a - t_phase:.1f} s, 16a {t_b - t_a:.1f} s, 16b {t_c - t_b:.1f} s, 16c "
+        f"{time.perf_counter() - t_c:.1f} s)")
+    report["recurrent"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--phase", type=int, choices=[15], default=None,
+    ap.add_argument("--phase", type=int, choices=[15, 16], default=None,
                     help="run phases 1, 2 and this one only (no kernels "
                          "line)")
     args = ap.parse_args(argv)
@@ -3374,6 +3811,9 @@ def main(argv=None) -> int:
         for row in ptxas_summary(text):
             log(f"build: {name}.cu {row}")
 
+    if args.phase == 16:
+        recurrent_phase(torch, report, dev)
+        return finish(torch, args, report, card, None)
     # 15a starts here and runs beside phases 3-12 (see DryrunCells)
     cells = DryrunCells(HERE / "build" / "dryrun")
     RUNNING.append(cells)
@@ -3718,6 +4158,9 @@ def main(argv=None) -> int:
     cells.pause()
     lm_phase(torch, report)
     train_phase(torch, report)
+    # 16. the recurrent families through the WKV and linear-scan kernels
+    rec = recurrent_phase(torch, report, dev)
+    kinfo.update(rec["kernels"])
     cells.resume()
 
     # 15. the LM dry-run, and the schedule rightsized from its records
@@ -3734,7 +4177,19 @@ def main(argv=None) -> int:
             "fit_scores_many": launches["fit_scores_many"],
             "fit_scores": launches_1["fit_scores"],
             "place_step": stepper["launches"]["place_step"],
-            "two_phase": launches_1["two_phase"]}
+            "two_phase": launches_1["two_phase"],
+            # phase 16's path: 16a serving (forward), 16c training
+            "wkv": rec["serve"]["rwkv6-7b"]["launches"]["wkv"],
+            "linear_scan":
+                rec["serve"]["recurrentgemma-9b"]["launches"]["linear_scan"],
+            "wkv_backward":
+                rec["train"]["rwkv6-7b"]["launches"]["wkv_backward"],
+            "linear_scan_backward": rec["train"]["recurrentgemma-9b"][
+                "launches"]["linear_scan_backward"]}
+    for name in ("wkv", "linear_scan"):
+        kinfo[name]["train_launches"] = {
+            arch: got["launches"].get(name, 0)
+            for arch, got in rec["train"].items()}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": runs[name],
@@ -3752,7 +4207,9 @@ def main(argv=None) -> int:
                                               "phase11_launches",
                                               "phase12_launches",
                                               "phase12_ms",
-                                              "phase15_launches")
+                                              "phase15_launches",
+                                              "train_launches",
+                                              "max_rel_err", "shape")
             if key in kinfo[name]}}
         for name in SOURCES]}
     report["kernels"] = kinfo

@@ -9,6 +9,10 @@ host-facing wrappers.
                    step of one placement sub-phase in one launch (the
                    compiled fleet path), and one instance's whole
                    ``two_phase`` in one launch (``two_phase_walk``).
+* ``wkv``        — the RWKV-6 recurrence, forward and backward
+                   (``csrc/wkv.cu``), as the ``repro_torch::wkv`` operator.
+* ``scan``       — the RG-LRU linear scan, forward and backward
+                   (``csrc/scan.cu``), as ``repro_torch::linear_scan``.
 
 ``ref`` holds the plain versions, ``ops`` the host-facing API with the
 reference's signatures, ``build`` the nvcc build.  ``launch_counts`` reads
@@ -19,6 +23,8 @@ from . import ops, ref
 from .congestion import congestion_many
 from .fit import fit_scores, fit_scores_many
 from .place_step import sub_phase, two_phase_walk
+from .scan import scan_backward, scan_forward
+from .wkv import wkv_backward_launch, wkv_forward
 
 __all__ = ["ops", "ref", "WRAPPERS", "launch_counts", "reset_launch_counts"]
 
@@ -29,6 +35,10 @@ WRAPPERS = {
     "fit_scores": fit_scores,
     "place_step": sub_phase,
     "two_phase": two_phase_walk,
+    "wkv": wkv_forward,
+    "wkv_backward": wkv_backward_launch,
+    "linear_scan": scan_forward,
+    "linear_scan_backward": scan_backward,
 }
 
 

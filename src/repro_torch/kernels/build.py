@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "nvcc_path"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("congestion", "fit", "place_step")
+SOURCES = ("congestion", "fit", "place_step", "wkv", "scan")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
@@ -61,6 +61,15 @@ SIGNATURES = {
         "two_phase_launch": (_C, _C, _C, _C, _C, _C, _C, _C, _F, _C,
                              _I, _I, _I, _I, _I, _I, _I, _C, _C),
         "barrier_chain_launch": (_I, _C, _C),
+    },
+    "wkv": {
+        "wkv_forward_launch": (_C,) * 7 + (_I,) * 5 + (_C,),
+        "wkv_backward_launch": (_C,) * 16 + (_I,) * 5 + (_C,),
+        "wkv_chunk": (),
+    },
+    "scan": {
+        "linear_scan_launch": (_C, _C, _C, _I, _I, _I, _C),
+        "linear_scan_backward_launch": (_C,) * 5 + (_I,) * 3 + (_C,),
     },
 }
 

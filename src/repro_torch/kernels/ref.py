@@ -2,6 +2,10 @@
 
 Each function computes what its CUDA kernel computes, with the reference
 package's formulas (``repro.kernels.ref``), on tensors of any device.  The
+recurrences (``wkv_*``, ``linear_scan_*``) have no counterpart there: the
+reference compiles its time loops (``repro.models.rwkv`` ``lax.scan``,
+``repro.models.rglru`` ``associative_scan``) and takes their gradients with
+``jax.grad``; these are the port's own loops over time and their reverse.  The
 kernel wrappers take these for CPU tensors; the tests and ``chip_smoke.py``
 hold the kernels against them.  Like the kernels, they are generic over the
 trailing feature dimension (D or K).
@@ -13,7 +17,8 @@ import torch
 
 __all__ = ["congestion_ref", "congestion_many_ref", "congestion_lp_ref",
            "fit_scores_ref", "fit_scores_many_ref", "span_mask",
-           "sub_phase_ref", "two_phase_ref"]
+           "sub_phase_ref", "two_phase_ref", "wkv_step_ref", "wkv_ref",
+           "wkv_backward_ref", "linear_scan_ref", "linear_scan_backward_ref"]
 
 _EPS = 1e-7  # the placement engines' feasibility slack
 
@@ -273,3 +278,93 @@ def two_phase_ref(walk, bounds, cap, dem, start, end, dn, T: int,
     if work is not None:
         work.update(tally)
     return out
+
+
+# --- recurrences (no counterpart in repro.kernels.ref) -----------------------
+
+
+def _wide(x):
+    """x in float32, or as it is when wider (float64 runs of the loops)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def wkv_step_ref(state, r_t, k_t, v_t, w_t, u):
+    """One RWKV-6 step on (B, H, N) inputs and the (B, H, N, N) float32
+    state; u (H, N).  Returns (y (B, H, N), the new state), both float32
+    (float64 for float64 inputs)."""
+    kv = torch.einsum("bhk,bhv->bhkv", _wide(k_t), _wide(v_t))
+    y = torch.einsum("bhk,bhkv->bhv", _wide(r_t),
+                     state + u[None, :, :, None] * kv)
+    new = _wide(w_t)[..., None] * state + kv
+    return y, new
+
+
+def wkv_ref(r, k, v, w, u):
+    """The RWKV-6 recurrence over time from a zero state, one step at a
+    time.  r, k, v, w: (B, S, H, N); u: (H, N).  Returns (y (B, S, H, N),
+    the final state (B, H, N, N)), both float32."""
+    B, S, H, N = r.shape
+    state = torch.zeros((B, H, N, N), dtype=_wide(w).dtype, device=r.device)
+    ys = []
+    for t in range(S):
+        y_t, state = wkv_step_ref(state, r[:, t], k[:, t], v[:, t], w[:, t],
+                                  u)
+        ys.append(y_t)
+    return torch.stack(ys, dim=1), state
+
+
+def wkv_backward_ref(r, k, v, w, u, gy, gs):
+    """The gradients of ``wkv_ref`` by the reverse recurrence, given gy
+    (B, S, H, N) and gs (B, H, N, N): dS_T = gs, dS_{t-1} = w_t dS_t +
+    r_t^T gy_t.  The states S_{t-1} come from a forward pass kept in full
+    (never from dividing by w_t, which may be 0).  Returns (gr, gk, gv in
+    the inputs' types, gw and gu (H, N) float32, or float64 for float64
+    inputs)."""
+    B, S, H, N = r.shape
+    f32 = dict(dtype=_wide(w).dtype, device=r.device)
+    state = torch.zeros((B, H, N, N), **f32)
+    states = []
+    for t in range(S):
+        states.append(state)
+        _, state = wkv_step_ref(state, r[:, t], k[:, t], v[:, t], w[:, t],
+                                u)
+    gr, gk, gv, gw = (torch.empty((B, S, H, N), **f32) for _ in range(4))
+    gu = torch.zeros((H, N), **f32)
+    ds = _wide(gs).clone()
+    for t in reversed(range(S)):
+        r_t, k_t, v_t, w_t = (_wide(x[:, t]) for x in (r, k, v, w))
+        g_t = _wide(gy[:, t])
+        gyv = (g_t * v_t).sum(-1, keepdim=True)  # (B, H, 1)
+        gr[:, t] = torch.einsum("bhj,bhij->bhi", g_t, states[t]) \
+            + u * k_t * gyv
+        gk[:, t] = torch.einsum("bhij,bhj->bhi", ds, v_t) + u * r_t * gyv
+        gv[:, t] = torch.einsum("bhij,bhi->bhj", ds, k_t) \
+            + g_t * (r_t * u * k_t).sum(-1, keepdim=True)
+        gw[:, t] = (ds * states[t]).sum(-1)
+        gu += (r_t * k_t * gyv).sum(0)
+        ds = w_t[..., None] * ds + r_t[..., None] * g_t[..., None, :]
+    return gr.to(r.dtype), gk.to(k.dtype), gv.to(v.dtype), gw, gu
+
+
+def linear_scan_ref(a, b):
+    """h_t = a_t * h_{t-1} + b_t over time from h_{-1} = 0, on (B, S, W)
+    float32: one step at a time, the multiply and the add rounded apart."""
+    h = torch.empty_like(b)
+    h_t = torch.zeros_like(b[:, 0])
+    for t in range(b.shape[1]):
+        h_t = a[:, t] * h_t + b[:, t]
+        h[:, t] = h_t
+    return h
+
+
+def linear_scan_backward_ref(a, h, gh):
+    """The gradients of ``linear_scan_ref`` given gh: dh_t = gh_t +
+    a_{t+1} dh_{t+1}, ga_t = dh_t h_{t-1}, gb_t = dh_t.  Returns (ga, gb)."""
+    ga, gb = torch.empty_like(gh), torch.empty_like(gh)
+    carry = torch.zeros_like(gh[:, 0])
+    for t in reversed(range(gh.shape[1])):
+        dh = gh[:, t] + carry
+        gb[:, t] = dh
+        ga[:, t] = dh * h[:, t - 1] if t > 0 else dh * 0.0
+        carry = a[:, t] * dh
+    return ga, gb

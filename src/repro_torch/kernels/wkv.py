@@ -1,0 +1,197 @@
+"""The RWKV-6 recurrence (``csrc/wkv.cu``) as PyTorch operators.
+
+``wkv(r, k, v, w, u) -> (y, s)`` runs the time-mix recurrence of
+``models.rwkv`` over a whole sequence from a zero state:
+
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+
+r, k, v: (B, S, H, N) float32 or bfloat16; w: (B, S, H, N) float32; u:
+(H, N) float32; y (B, S, H, N) and the final state s (B, H, N, N) come back
+in float32.  Its backward, ``wkv_backward_launch(r, k, v, w, u, gy, gs)``,
+returns (gr, gk, gv, gw, gu), gr, gk and gv in the inputs' type.
+
+Both are ``torch.library`` operators (``repro_torch::wkv``,
+``repro_torch::wkv_backward``): the CPU implementation is the plain version
+(``ref.wkv_ref``, ``ref.wkv_backward_ref``), the CUDA one the kernel, and
+the fake one gives shapes only, so a ``meta`` trace (the dry-run) sees one
+operator a layer.  ``wkv`` carries an autograd rule whose backward is
+``wkv_backward``.  Each operator has a FLOP formula equal to what
+``launch.hlo_cost.OpCounter`` counts for the plain loop's products on the
+same shapes (2 B S H N^2 forward, 4 B S H N^2 backward), so the dry-run's
+counts do not move.
+
+The launch wrappers ``wkv_forward`` and ``wkv_backward_launch`` add one to
+their ``launches`` count per launch (one launch of the backward entry runs
+its three passes and the bonus sum).  On a tensor that is neither on the CPU
+nor on a CUDA card they raise; a CUDA build or launch that fails raises.
+Replaces no Pallas kernel: the reference compiles this loop as a
+``lax.scan`` (``repro.models.rwkv.timemix_scan``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
+
+from . import ref
+
+__all__ = ["wkv", "wkv_forward", "wkv_backward_launch"]
+
+SUPPORTED_N = (8, 16, 32, 64)  # the head sizes wkv.cu is instantiated for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(r, k, v, w, u):
+    if r.dim() != 4:
+        raise ValueError(f"r must be (B, S, H, N), got {tuple(r.shape)}")
+    B, S, H, N = r.shape
+    for name, t, dtype, shape in (("r", r, r.dtype, (B, S, H, N)),
+                                  ("k", k, r.dtype, (B, S, H, N)),
+                                  ("v", v, r.dtype, (B, S, H, N)),
+                                  ("w", w, torch.float32, (B, S, H, N)),
+                                  ("u", u, torch.float32, (H, N))):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != r.device:
+            raise ValueError("all inputs must share one device")
+
+
+def _cuda_args(*tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the wkv kernel takes contiguous tensors")
+    N = tensors[0].shape[-1]
+    if N not in SUPPORTED_N:
+        raise ValueError(f"the wkv kernel takes N in {SUPPORTED_N}, got {N}")
+    if tensors[0].dtype not in _DTYPES:
+        raise TypeError(f"the wkv kernel takes r, k, v in "
+                        f"{list(_DTYPES)}, got {tensors[0].dtype}")
+    from . import build
+
+    return build.load("wkv"), torch.cuda.current_stream(dev).cuda_stream
+
+
+def wkv_forward(r, k, v, w, u):
+    """(y, s) by the kernel on CUDA tensors, by ``ref.wkv_ref`` on CPU
+    tensors."""
+    _check(r, k, v, w, u)
+    if r.device.type == "cpu":
+        return ref.wkv_ref(r, k, v, w, u)
+    lib, stream = _cuda_args(r, k, v, w, u)
+    B, S, H, N = r.shape
+    y = torch.empty((B, S, H, N), dtype=torch.float32, device=r.device)
+    s = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    err = lib.wkv_forward_launch(
+        *(t.data_ptr() for t in (r, k, v, w, u, y, s)), B, S, H, N,
+        _DTYPES[r.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"wkv forward launch failed: CUDA error {err}")
+    wkv_forward.launches += 1
+    return y, s
+
+
+wkv_forward.launches = 0
+
+
+def wkv_backward_launch(r, k, v, w, u, gy, gs):
+    """(gr, gk, gv, gw, gu) by the kernel on CUDA tensors, by
+    ``ref.wkv_backward_ref`` on CPU tensors."""
+    _check(r, k, v, w, u)
+    B, S, H, N = r.shape
+    for name, t, shape in (("gy", gy, (B, S, H, N)), ("gs", gs, (B, H, N, N))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != r.device:
+            raise ValueError(f"{name} must be float32 {shape} on {r.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if r.device.type == "cpu":
+        return ref.wkv_backward_ref(r, k, v, w, u, gy, gs)
+    lib, stream = _cuda_args(r, k, v, w, u, gy, gs)
+    chunk = lib.wkv_chunk()
+    dev = r.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_chunks = -(-S // chunk)
+    ckpt = torch.empty((B * H, n_chunks, N, N), **f32)
+    hist = torch.empty((B * H, chunk, N, N), **f32)
+    gu_part = torch.empty((B, H, N), dtype=torch.float64, device=dev)
+    s_scratch = torch.empty((B, H, N, N), **f32)
+    gr, gk, gv = (torch.empty((B, S, H, N), dtype=r.dtype, device=dev)
+                  for _ in range(3))
+    gw = torch.empty((B, S, H, N), **f32)
+    gu = torch.empty((H, N), **f32)
+    err = lib.wkv_backward_launch(
+        *(t.data_ptr() for t in (r, k, v, w, u, gy, gs, ckpt, hist, gu_part,
+                                 s_scratch, gr, gk, gv, gw, gu)),
+        B, S, H, N, _DTYPES[r.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"wkv backward launch failed: CUDA error {err}")
+    wkv_backward_launch.launches += 1
+    return gr, gk, gv, gw, gu
+
+
+wkv_backward_launch.launches = 0
+
+
+# --- the operators -----------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::wkv", mutates_args=())
+def _wkv_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor,
+            u: Tensor) -> tuple[Tensor, Tensor]:
+    return wkv_forward(r, k, v, w, u)
+
+
+@_wkv_op.register_fake
+def _(r, k, v, w, u):
+    B, S, H, N = r.shape
+    return (r.new_empty((B, S, H, N), dtype=torch.float32),
+            r.new_empty((B, H, N, N), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::wkv_backward", mutates_args=())
+def _wkv_backward_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                     gy: Tensor, gs: Tensor
+                     ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    return wkv_backward_launch(r, k, v, w, u, gy, gs)
+
+
+@_wkv_backward_op.register_fake
+def _(r, k, v, w, u, gy, gs):
+    return (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(w), torch.empty_like(u))
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, gy, gs):
+    r, k, v, w, u = ctx.saved_tensors
+    return torch.ops.repro_torch.wkv_backward(
+        r, k, v, w, u, gy.contiguous(), gs.contiguous())
+
+
+_wkv_op.register_autograd(_backward, setup_context=_setup)
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv)
+def _wkv_flops(r_shape, *args, **kwargs) -> int:
+    B, S, H, N = r_shape
+    return 2 * B * S * H * N * N
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv_backward)
+def _wkv_backward_flops(r_shape, *args, **kwargs) -> int:
+    B, S, H, N = r_shape
+    return 4 * B * S * H * N * N
+
+
+def wkv(r: Tensor, k: Tensor, v: Tensor, w: Tensor,
+        u: Tensor) -> tuple[Tensor, Tensor]:
+    """The recurrence over a sequence: (y (B, S, H, N), s (B, H, N, N)),
+    both float32, differentiable in every input."""
+    return torch.ops.repro_torch.wkv(r, k, v, w, u)

@@ -4,7 +4,9 @@
         --steps 200 --ckpt-dir /tmp/ckpt [--device cpu]
 
 Ported from ``repro.launch.train`` with the same flags, defaults and printed
-lines, plus ``--device``: the model trains on the CUDA card unless given
+lines, plus ``--device`` and ``--layers`` (keep the first N layers, widths
+unchanged: a depth cut that fits a full-width model and its optimizer state
+on one card): the model trains on the CUDA card unless given
 ``--device cpu``, and without a card the command raises.  Weights are a
 random init from a seeded ``torch.Generator`` on the device, as the
 reference trains from ``init_params(PRNGKey(0), cfg)``; batches are the
@@ -23,6 +25,7 @@ detection); run it twice with the same --ckpt-dir and it resumes.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -40,7 +43,7 @@ from ..train import (
 )
 from ..train.fault import FaultInjector, LoopConfig, train_loop
 
-__all__ = ["model_100m", "pick_config", "run"]
+__all__ = ["model_100m", "pick_config", "cut_depth", "run"]
 
 
 def model_100m() -> ModelConfig:
@@ -58,6 +61,16 @@ def pick_config(arch: str, preset: str) -> ModelConfig:
     if preset == "100m":
         return model_100m()
     return get_config(arch)
+
+
+def cut_depth(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """``cfg`` with its first ``layers`` layers (whole scan units)."""
+    unit = max(cfg.scan_unit, 1)
+    if not 0 < layers <= cfg.num_layers or layers % unit:
+        raise ValueError(f"--layers {layers}: need a multiple of the scan "
+                         f"unit {unit} in [1, {cfg.num_layers}]")
+    return dataclasses.replace(cfg, num_layers=layers,
+                               pattern=cfg.pattern[:layers])
 
 
 def run(argv=None):
@@ -78,9 +91,14 @@ def run(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "on the host)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers of the config (a depth "
+                         "cut; every width unchanged)")
     args = ap.parse_args(argv)
 
     cfg = pick_config(args.arch, args.preset)
+    if args.layers is not None:
+        cfg = cut_depth(cfg, args.layers)
     dev = resolve_device(args.device)
     print(f"config: {cfg.name}  params~{cfg.param_count()/1e6:.1f}M")
     tc = TrainConfig(

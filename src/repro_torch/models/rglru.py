@@ -3,10 +3,11 @@
 The recurrence  h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 with input/recurrence gates is linear in h.  Ported from
 ``repro.models.rglru``: the gates are computed in float32 as there, and the
-full-sequence path scans time sequentially in float32 where the reference
-uses ``lax.associative_scan``; the two sum in another order (float32
-rounding, well inside 1e-4 at the tests' sizes).  Decode keeps O(1) state
-per layer.
+full-sequence path scans time sequentially in float32 (the
+``repro_torch::linear_scan`` operator, ``kernels.scan``: the hand-written
+kernel on the card, the plain loop on the CPU) where the reference uses
+``lax.associative_scan``; the two sum in another order (float32 rounding,
+well inside 1e-4 at the tests' sizes).  Decode keeps O(1) state per layer.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..kernels.scan import linear_scan
 from ..sharding.ctx import constrain, shard_local
 from .layers import init_dense
 
@@ -91,7 +93,9 @@ def rglru_scan(x, params):
     """Full-sequence RG-LRU: x (B, S, W) -> (out (B, S, W), h_final fp32).
     h_0 = 0; a sequential float32 scan over time."""
     x = constrain(x, "batch", None, "model")
-    a, b = _gates(x, params)  # both (B, S, W) fp32
+    # both (B, S, W) fp32, laid out as the scan needs them: time whole,
+    # batch and channels sharded (the gates' products may shard time)
+    a, b = (constrain(t, "batch", None, "model") for t in _gates(x, params))
     # elementwise over batch and channels: each device scans its own shards
     h, h_t = shard_local(_scan, a, b, outputs=2)
     return h.to(x.dtype), h_t[:, 0]
@@ -100,12 +104,8 @@ def rglru_scan(x, params):
 def _scan(a, b):
     """h_t = a_t * h_{t-1} + b_t over time from h_0 = 0, on (B, S, W):
     returns (h, the last h as (B, 1, W))."""
-    h = torch.empty_like(b)
-    h_t = torch.zeros_like(b[:, 0])
-    for t in range(b.shape[1]):
-        h_t = a[:, t] * h_t + b[:, t]
-        h[:, t] = h_t
-    return h, h_t[:, None]
+    h = linear_scan(a.contiguous(), b.contiguous())
+    return h, h[:, -1:].clone()  # a copy: a view would keep all of h alive
 
 
 def rglru_step(x_t, h_prev, params):

@@ -7,8 +7,10 @@ State per head is an (N, N) outer-product accumulator:
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 
 with w_t = exp(-exp(wproj(x_t))) the data-dependent decay.  Ported from
-``repro.models.rwkv``: the float32 state runs a sequential loop over time
-(the reference's ``lax.scan``), and decode carries O(1) state.
+``repro.models.rwkv``: the reference's ``lax.scan`` over time is the
+``repro_torch::wkv`` operator (``kernels.wkv``: the hand-written kernel on
+the card, the plain loop on the CPU, one operator a layer in a trace), and
+decode carries O(1) state.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.ref import wkv_step_ref
+from ..kernels.wkv import wkv
 from ..sharding.ctx import constrain, shard_local
 from .layers import init_dense
 
@@ -119,28 +123,14 @@ def _group_norm(y, scale):
     return yn.reshape(B, S, H * N) * scale
 
 
-def _wkv(S_state, r_t, k_t, v_t, w_t, u):
-    """One step of the recurrence on (B, H, N) inputs: returns (y, S_new),
-    both float32."""
-    kv = torch.einsum("bhk,bhv->bhkv", k_t.float(), v_t.float())
-    y = torch.einsum("bhk,bhkv->bhv", r_t.float(),
-                     S_state + u[None, :, :, None] * kv)
-    S_new = w_t.float()[..., None] * S_state + kv
-    return y, S_new
-
-
 def _wkv_scan(r, k, v, w, u):
     """The recurrence over time on (B, S, H, N) inputs, from a zero state;
     ``u`` is the bonus broadcast to that shape.  Returns (y (B, S, H, N),
     the final state as (B, 1, H, N * N)), both float32."""
     B, S, H, N = r.shape
-    S_state = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
-    ys = []
-    for t in range(S):
-        y_t, S_state = _wkv(S_state, r[:, t], k[:, t], v[:, t], w[:, t],
-                            u[0, 0])
-        ys.append(y_t)
-    return torch.stack(ys, dim=1), S_state.reshape(B, 1, H, N * N)
+    y, S_state = wkv(r.contiguous(), k.contiguous(), v.contiguous(),
+                     w.contiguous(), u[0, 0].contiguous())
+    return y, S_state.reshape(B, 1, H, N * N)
 
 
 def timemix_scan(x, x_prev, p, head_dim: int):
@@ -166,7 +156,8 @@ def timemix_step(x_t, state, p, head_dim: int):
     S_state, x_prev = state
     r, k, v, g, w = _projections(x_t[:, None, :], x_prev[:, None, :], p,
                                  head_dim)
-    y, S_new = _wkv(S_state, r[:, 0], k[:, 0], v[:, 0], w[:, 0], p.u_bonus)
+    y, S_new = wkv_step_ref(S_state, r[:, 0], k[:, 0], v[:, 0], w[:, 0],
+                            p.u_bonus)
     y = _group_norm(y[:, None], p.ln_x)[:, 0].to(x_t.dtype)
     out = (y * F.silu(g[:, 0])) @ p.w_out
     return out, (S_new, x_t)

@@ -42,7 +42,11 @@ card, loss within 1e-4 abs and every gradient within 1e-4 of its own max
 |value|, MoE slots equal in forward and recompute
 (``tests/_torch_train_card.py``, shared with ``chip_smoke.py`` phase 14b);
 ``launch.train`` on the card by default; a CPU checkpoint restored onto the
-card bit-equal.
+card bit-equal.  The recurrences (``wkv.cu``, ``scan.cu``): the WKV forward
+and backward within 1e-4 of each output's max |value| of the plain loops
+(bfloat16 outputs within two bfloat16 roundings more), the linear scan
+bit-equal to its plain loops (both round the multiply and the add apart),
+and the recurrent smoke models launching them.
 """
 
 import numpy as np
@@ -881,3 +885,84 @@ def test_checkpoint_restores_onto_the_card(dev, tmp_path):
                                m2.named_parameters()):
         assert torch.equal(a, b.cpu()), n
     assert s2["opt"]["step"].device.type == "cuda"
+
+
+# --- the recurrences (wkv.cu, scan.cu) ---------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,N", [(1, 1, 1, 8), (2, 70, 3, 16),
+                                     (1, 33, 2, 32), (2, 65, 4, 64)])
+def test_wkv_matches_plain(dev, dtype, B, S, H, N):
+    """Forward and backward against the plain loops: float32 outputs within
+    1e-4 of each one's max |value| (sums in another order), bfloat16 ones
+    within two bfloat16 roundings more; a tenth of the decays exactly 0."""
+    from repro_torch.kernels import wkv as kwkv
+
+    g = torch.Generator(device=dev).manual_seed(B * S + N)
+    r, k, v = (torch.randn((B, S, H, N), generator=g, device=dev) * 0.5
+               for _ in range(3))
+    r, k, v = r.to(dtype), k.to(dtype), v.to(dtype)
+    w = torch.exp(-torch.exp(torch.randn((B, S, H, N), generator=g,
+                                         device=dev) - 2.0))
+    w[torch.rand(w.shape, generator=g, device=dev) < 0.1] = 0.0
+    u = torch.randn((H, N), generator=g, device=dev)
+    gy = torch.randn((B, S, H, N), generator=g, device=dev)
+    gs = torch.randn((B, H, N, N), generator=g, device=dev)
+    before = (kwkv.wkv_forward.launches, kwkv.wkv_backward_launch.launches)
+    got = kwkv.wkv_forward(r, k, v, w, u) + kwkv.wkv_backward_launch(
+        r, k, v, w, u, gy, gs)
+    torch.cuda.synchronize()
+    assert (kwkv.wkv_forward.launches, kwkv.wkv_backward_launch.launches) \
+        == (before[0] + 1, before[1] + 1)
+    want = ref.wkv_ref(r, k, v, w, u) + ref.wkv_backward_ref(
+        r, k, v, w, u, gy, gs)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        a, b = a.double(), b.double()
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+        lim = rtol * b.abs() + 1e-4 * float(b.abs().max())
+        assert bool(((a - b).abs() <= lim).all())
+
+
+def test_wkv_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels import wkv as kwkv
+
+    x = torch.zeros((1, 2, 1, 128), device=dev)
+    with pytest.raises(ValueError, match="N in"):
+        kwkv.wkv_forward(x, x, x, x, torch.zeros((1, 128), device=dev))
+    x = torch.zeros((1, 2, 1, 16), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        kwkv.wkv_forward(x, x, x, x.transpose(1, 2).contiguous()
+                         .transpose(1, 2), torch.zeros((1, 16), device=dev))
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 1, 1), (2, 7, 300), (4, 513, 4096)])
+def test_linear_scan_is_bit_equal_to_plain(dev, B, S, W):
+    from repro_torch.kernels import scan as kscan
+
+    g = torch.Generator(device=dev).manual_seed(S + W)
+    a = torch.rand((B, S, W), generator=g, device=dev)
+    b = torch.randn((B, S, W), generator=g, device=dev)
+    gh = torch.randn((B, S, W), generator=g, device=dev)
+    h = kscan.scan_forward(a, b)
+    assert torch.equal(h, ref.linear_scan_ref(a, b))
+    got = kscan.scan_backward(a, h, gh)
+    want = ref.linear_scan_backward_ref(a, h, gh)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b"])
+def test_recurrent_smoke_goes_through_the_kernels(dev, arch):
+    """The smoke models' prefill on the card launches the recurrence's
+    kernel once per recurrent layer, and training its backward too."""
+    from _torch_lm_card import card_vs_cpu
+    from _torch_train_card import train_card_vs_cpu
+
+    from repro_torch import kernels
+
+    name = {"rwkv6-7b": "wkv", "recurrentgemma-9b": "linear_scan"}[arch]
+    kernels.reset_launch_counts()
+    card_vs_cpu(arch, dev)
+    assert kernels.launch_counts()[name] > 0
+    train_card_vs_cpu(arch, dev)
+    assert kernels.launch_counts()[name + "_backward"] > 0

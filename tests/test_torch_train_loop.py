@@ -200,3 +200,28 @@ def test_cli_prints_the_reference_lines_and_resumes(tmp_path):
         r"-> \d+\.\d{3}; stragglers=\d+ resumed_from=10", lines[-1]), lines
     # the crashed run's step 10 and the resumed run's step 10 agree
     assert crashed.stdout.splitlines()[2] == lines[1]
+
+
+@pytest.mark.parametrize("arch,layers", [("rwkv6-7b", 8),
+                                         ("recurrentgemma-9b", 6)])
+def test_layers_cuts_depth_only(arch, layers):
+    """``--layers`` keeps the config's first layers (whole scan units) and
+    every width; a cut that splits a unit or exceeds the depth raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+
+    cfg = get_config(arch)
+    cut = cut_depth(cfg, layers)
+    assert cut.num_layers == layers and cut.pattern == cfg.pattern[:layers]
+    assert dataclasses.replace(cut, num_layers=cfg.num_layers,
+                               pattern=cfg.pattern) == cfg
+    for bad in (0, cfg.num_layers + 3, 1 if cfg.scan_unit > 1 else -1):
+        with pytest.raises(ValueError, match="--layers"):
+            cut_depth(cfg, bad)
+
+
+def test_cli_layers_trains_the_cut_model(tmp_path):
+    out = _cli("--arch", "recurrentgemma-9b", "--layers", "3", "--steps",
+               "2", "--seq", "16", "--ckpt-dir", str(tmp_path / "ck"))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1].startswith("done: 2 steps")
