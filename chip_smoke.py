@@ -236,12 +236,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``kernels/csrc/wkv.cu``, ``scan.cu``), which replace no Pallas kernel
    but the reference's compiled time loops; it runs after phase 14, while
    15a's processes wait.  First each kernel, forward and backward, against
-   its plain loop on the card at full-width layer shapes (WKV at B = 4, H =
-   64, N = 64 in float32 and bfloat16, a hundredth of the decays exactly 0;
-   the scan at B = 4, W = 4096, bit-equal), S = 512, then timed (kernel,
-   plain loop, bound, and the WKV's serial chain of S barrier steps, 4S
-   backward, at ``chain_ns_per_step``; the kernels alone at S = 4100 and 2048
-   too).  (a) ``rwkv6-7b`` (7.786 B bf16 parameters), then
+   its plain loop on the card at full-width layer shapes and the path's
+   lengths (forwards S = 4100, backwards S = 2048): the WKV at B = 4, H =
+   64, N = 64 in float32 and bfloat16 with log-decays, a hundredth of the
+   decays exactly 0, then at the ragged lengths S = 1, 63 and 65 (the chunk
+   is 64 steps) and at S = 300 with a tenth of the decays exactly 0 (half of
+   them lw = -inf); the backward's scratch bytes
+   (``torch.cuda.max_memory_allocated`` around one call at S = 2048); the
+   scan at B = 4, W = 4096, bit-equal; then each timed (kernel, plain loop,
+   bound: the WKV's operations at the TF32 tensor-core rate over the 3-pass
+   split, which its kernels run, beside the same count at the CUDA cores'
+   float32 rate, ``bound_ms_f32_rate``, the bound of the earlier serial
+   kernels; the log line gives the chunked form's own operation count,
+   counted from the kernels' loops, not measured).  (a) ``rwkv6-7b``
+   (7.786 B bf16 parameters), then
    ``recurrentgemma-9b`` (9.396 B), at full width from a seeded generator
    through ``launch.serve``'s ``make_batch``/``generate``: B = 4, a
    4100-token prompt (past recurrentgemma's 2048-token window), 16 greedy
@@ -281,11 +289,13 @@ import time
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and non-tensor-core f32 and
-# f64 rates
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, non-tensor-core f32 and
+# f64 rates and the dense TF32 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3   # the WKV kernels' split: a_hi b_hi + a_hi b_lo + a_lo b_hi
 
 CONG_RTOL = CONG_ATOL = 1e-5   # float32 sums in another order
 FIT_RTOL = FIT_ATOL = 1e-5     # dot / norm: float32 sums in another order
@@ -3415,10 +3425,11 @@ def close_rel(a, b, rtol: float, what: str) -> tuple[float, float]:
     return err, err / top
 
 
-def wkv_inputs(torch, dev, B, S, H, N, dtype, seed: int):
-    """r, k, v (dtype), w, u (float32) and the gradients gy, gs from a
-    seeded generator: w = exp(-exp(x)) with x ~ N(-3, 1.5), and one entry in
-    a hundred at x = 5, where w underflows to exactly 0."""
+def wkv_inputs(torch, dev, B, S, H, N, dtype, seed: int, zeros=0.01):
+    """r, k, v (dtype), the log-decays lw, u (float32) and the gradients gy,
+    gs from a seeded generator: lw = -exp(x) with x ~ N(-3, 1.5); a share
+    ``zeros`` of the decays exactly 0, at lw = -exp(5) (w = exp(lw)
+    underflows) and, past a share of 1%, half of them at lw = -inf."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -3426,13 +3437,42 @@ def wkv_inputs(torch, dev, B, S, H, N, dtype, seed: int):
 
     r, k, v = (randn(B, S, H, N, scale=0.5).to(dtype) for _ in range(3))
     x = randn(B, S, H, N, scale=1.5) - 3.0
-    x = torch.where(torch.rand(x.shape, generator=g, device=dev) < 0.01,
-                    torch.full_like(x, 5.0), x)
-    w = torch.exp(-torch.exp(x))
+    pick = torch.rand(x.shape, generator=g, device=dev)
+    x = torch.where(pick < zeros, torch.full_like(x, 5.0), x)
+    lw = -torch.exp(x)
+    if zeros > 0.01:
+        lw = torch.where(pick < zeros / 2, torch.full_like(lw, -math.inf), lw)
     u = randn(H, N, scale=0.5)
     gy = randn(B, S, H, N)
     gs = randn(B, H, N, N, scale=0.1)
-    return (r, k, v, w, u), gy, gs
+    return (r, k, v, lw, u), gy, gs
+
+
+def wkv_chunked_ops(B, S, H, N, backward: bool) -> float:
+    """The chunked form's own operations (a multiply-add 2), counted from
+    the kernels' loops (not measured), before the 3-pass TF32 split: per chunk of L = 64 steps the
+    products (state increments, A's blocks against earlier sub-chunks (16 x
+    16a, a = 1..3) and its halves (four 8 x 8), y = A v and (r 2^C) S_in;
+    backward dA, A again, gv, gr and gk's products against A, dA, S_in and
+    dS_out), the elementwise pairs (224, 3 operations a channel; the
+    backward's 480 more at 4) and the bonus (64 at 3), and the chunk
+    recurrences (2 N^2 a chunk, each direction)."""
+    L = 64
+    nc = -(-S // L)
+    a_blocks = 2 * N * (16 * 16 * (1 + 2 + 3) + 4 * 8 * 8)
+    elem = 3 * N * (224 + 64)
+    if not backward:
+        per = 2 * (2 * L * N * N) + a_blocks + elem + 2 * 16 * 16 * 10 * N \
+            + 2 * N * N
+    else:
+        per = (2 * (2 * L * N * N) + 2 * (2 * N * N)      # chunk_state, scan
+               + 2 * N * 16 * (32 + 32 + 64 + 64)         # dA
+               + a_blocks + elem                          # A again
+               + 2 * N * 16 * (64 + 48 + 32 + 16)         # A^T gy
+               + 2 * N * 16 * 16 * (1 + 2 + 3) * 2        # dA k, dA^T r
+               + 3 * (2 * L * N * N)                      # S_in, dS_out
+               + 4 * N * 4 * 120 + 6 * L * N)             # pairs, glw
+    return float(B * H * nc * per)
 
 
 def recurrent_kernel_checks(torch, dev) -> dict:
@@ -3456,33 +3496,59 @@ def recurrent_kernel_checks(torch, dev) -> dict:
         errs[name] = [max(x, y) for x, y in zip(errs[name], got)]
         return got[1]
 
-    for dtype in (torch.float32, torch.bfloat16):
-        ins, _, _ = wkv_inputs(torch, dev, B, Sf, H, N, dtype, seed=3)
-        zeros = int((ins[3] == 0).sum())
+    def check(dtype, Sf, Sb, zeros, seed):
+        ins, _, _ = wkv_inputs(torch, dev, B, Sf, H, N, dtype, seed, zeros)
+        n0 = int((torch.exp(ins[3]) == 0).sum())
         y, st = kwkv.wkv_forward(*ins)
         y0, st0 = ref.wkv_ref(*ins)
         torch.cuda.synchronize()
-        e = max(hold("wkv", y, y0, 0.0, f"wkv y {dtype}"),
-                hold("wkv", st, st0, 0.0, f"wkv state {dtype}"))
+        e = max(hold("wkv", y, y0, 0.0, f"wkv y {dtype} S={Sf}"),
+                hold("wkv", st, st0, 0.0, f"wkv state {dtype} S={Sf}"))
         del ins, y, st, y0, st0
-        ins, gy, gs = wkv_inputs(torch, dev, B, Sb, H, N, dtype, seed=3)
+        ins, gy, gs = wkv_inputs(torch, dev, B, Sb, H, N, dtype, seed, zeros)
         grads = kwkv.wkv_backward_launch(*ins, gy, gs)
         plain = ref.wkv_backward_ref(*ins, gy, gs)
         eb = 0.0
-        for name, a, b in zip(("gr", "gk", "gv", "gw", "gu"), grads, plain):
+        for name, a, b in zip(("gr", "gk", "gv", "glw", "gu"), grads, plain):
             rtol = REC_BF16_RTOL if a.dtype == torch.bfloat16 else 0.0
             eb = max(eb, hold("wkv_backward", a, b, rtol,
-                              f"wkv {name} {dtype}"))
-        log(f"recurrent: wkv {dtype} B={B} H={H} N={N}: forward at S={Sf} "
-            f"({zeros} decays exactly 0) max rel {e:.3e}, backward at "
-            f"S={Sb} max rel {eb:.3e} against the plain loops")
+                              f"wkv {name} {dtype} S={Sb}"))
+        log(f"recurrent: wkv {dtype} B={B} H={H} N={N}, {zeros:.0%} of the "
+            f"decays exactly 0: forward at S={Sf} ({n0} zeros) max rel "
+            f"{e:.3e}, backward at S={Sb} max rel {eb:.3e} against the plain "
+            f"loops")
         del ins, gy, gs, grads, plain
+
+    # the path's lengths, then ragged ones around the chunk (L = 64), then
+    # a tenth of the decays exactly 0
+    for dtype in (torch.float32, torch.bfloat16):
+        check(dtype, Sf, Sb, 0.01, seed=3)
+    for S in (1, 63, 65):
+        for dtype in (torch.float32, torch.bfloat16):
+            check(dtype, S, S, 0.01, seed=10 + S)
+    for dtype in (torch.float32, torch.bfloat16):
+        check(dtype, 300, 300, 0.1, seed=7)
+    # the backward's scratch at 16c's length: the call's peak over what was
+    # held, less its outputs
+    ins, gy, gs = wkv_inputs(torch, dev, B, Sb, H, N, torch.bfloat16, 4)
+    torch.cuda.synchronize()
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = kwkv.wkv_backward_launch(*ins, gy, gs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    outs = sum(t.numel() * t.element_size() for t in grads)
+    scratch = {"peak_over_held_bytes": peak, "outputs_bytes": outs,
+               "scratch_bytes": peak - outs}
+    log(f"recurrent: wkv_backward B={B} S={Sb} H={H} N={N} bf16: peak "
+        f"{peak} bytes over what was held, outputs {outs}, scratch "
+        f"{peak - outs} bytes (torch.cuda.max_memory_allocated)")
+    del ins, gy, gs, grads
     # timing in the model's bfloat16
-    chain_ns = chain_ns_per_step(torch, dev)
     elt = 2
-    out = {}
-    for name, S, steps, seed in (("wkv", Sf, Sf, 4),
-                                 ("wkv_backward", Sb, 4 * Sb, 4)):
+    out, chunked = {}, {}
+    for name, S, seed in (("wkv", Sf, 4), ("wkv_backward", Sb, 4)):
         ins, gy, gs = wkv_inputs(torch, dev, B, S, H, N, torch.bfloat16,
                                  seed)
         if name == "wkv":
@@ -3497,15 +3563,21 @@ def recurrent_kernel_checks(torch, dev) -> dict:
             nbytes = (B * S * H * N * (6 * elt + 12) + 2 * B * H * N * N * 4
                       + 2 * H * N * 4)
             ops = 11.0 * B * S * H * N * N
-        b_ms, b_by = bound(nbytes, ops)
+        # the kernels run every product on the tensor cores in TF32 with a
+        # 3-pass split; the float32-rate bound of the earlier serial
+        # kernels, which ran them on the CUDA cores, stays beside it
+        b_ms, b_by = bound(nbytes, ops, PEAK_TF32_FLOPS / TF32_PASSES)
         out[name] = {
             "shape": {"B": B, "S": S, "H": H, "N": N, "dtype": "bfloat16"},
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
             "ms": device_ms(torch, fn, reps=20, warmup=3),
             "plain_ms": device_ms(torch, plain, reps=2, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "call_ms": cuda_ms(torch, fn, reps=20, warmup=2),
-            "latency_bound_ms": steps * chain_ns * 1e-6}
+            "bound_ms_f32_rate": bound(nbytes, ops)[0],
+            "call_ms": cuda_ms(torch, fn, reps=20, warmup=2)}
+        chunked[name] = wkv_chunked_ops(B, S, H, N, name != "wkv")
+        if name == "wkv_backward":
+            out[name].update(scratch)
         del ins, gy, gs, fn, plain
     # the linear scan (float32 gates): bit-equal to the plain loop
     Bs, W = SCAN_SHAPE
@@ -3548,8 +3620,14 @@ def recurrent_kernel_checks(torch, dev) -> dict:
         log(timing_line(name, info))
         log(f"timing: {name} shape {info['shape']} max_rel_err "
             f"{info['max_rel_err']:.3g}" + (
-                f" latency_bound_ms {info['latency_bound_ms']:.6f}"
-                if "latency_bound_ms" in info else ""))
+                f" bound_ms_f32_rate {info['bound_ms_f32_rate']:.6f} "
+                f"(float32 rate); chunked form's operations "
+                f"{chunked[name]:.6e}, counted from the kernels' loops (the "
+                f"bound counts {'5' if name == 'wkv' else '11'} B S H N^2), "
+                f"{-(-info['shape']['S'] // 64)} serial chunks"
+                if name in chunked else "")
+            + (f" scratch_bytes {info['scratch_bytes']}"
+               if "scratch_bytes" in info else ""))
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4201,6 +4279,8 @@ def main(argv=None) -> int:
          # the serial chain's floor, where a kernel is one (two_phase), and
          # the tol-mode evaluate's launches (the congestion kernel)
          **{key: kinfo[name][key] for key in ("latency_bound_ms",
+                                              "bound_ms_f32_rate",
+                                              "scratch_bytes",
                                               "tol_launches",
                                               "phase10_launches",
                                               "phase10_ms",

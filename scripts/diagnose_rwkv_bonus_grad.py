@@ -8,7 +8,8 @@ float32, B = 2, S = 16, the same weights and batch) runs one loss and
 backward on the CPU and on the card, once with the time loop as the plain
 loop under autograd (path "loop", the port before ``repro_torch::wkv``)
 and once through the operator (path "op": the kernel on the card, the plain
-reverse loop on the CPU).  Every layer's loop inputs (r, k, v, w, u)
+reverse loop on the CPU).  Every layer's loop inputs (r, k, v, the
+log-decays lw, u)
 and the gradient reaching its output (gy) are recorded on each side.  The
 bonus gradient is the loop's alone (u enters nowhere else), so each side's
 reading splits into:
@@ -63,8 +64,8 @@ def main(argv=None) -> int:
                                        seed=7), 0)
     op = rwkv.wkv
 
-    def loop(r, k, v, w, u):
-        return ref.wkv_ref(r, k, v, w, u)
+    def loop(r, k, v, lw, u):
+        return ref.wkv_ref(r, k, v, lw, u)
 
     def rel(a, b) -> float:
         return float((a.double() - b.double()).abs().max()) / max(
@@ -74,9 +75,9 @@ def main(argv=None) -> int:
         """(loss, [(inputs, gy, gu)] per layer) of one side and path."""
         recs = []
 
-        def spy(r, k, v, w, u):
-            y, s = (op if path == "op" else loop)(r, k, v, w, u)
-            rec = {"in": [t.detach().cpu() for t in (r, k, v, w, u)]}
+        def spy(r, k, v, lw, u):
+            y, s = (op if path == "op" else loop)(r, k, v, lw, u)
+            rec = {"in": [t.detach().cpu() for t in (r, k, v, lw, u)]}
             y.register_hook(lambda g, rec=rec: rec.__setitem__(
                 "gy", g.detach().cpu()))
             recs.append(rec)

@@ -63,7 +63,7 @@ SIGNATURES = {
         "barrier_chain_launch": (_I, _C, _C),
     },
     "wkv": {
-        "wkv_forward_launch": (_C,) * 7 + (_I,) * 5 + (_C,),
+        "wkv_forward_launch": (_C,) * 9 + (_I,) * 5 + (_C,),
         "wkv_backward_launch": (_C,) * 16 + (_I,) * 5 + (_C,),
         "wkv_chunk": (),
     },

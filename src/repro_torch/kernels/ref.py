@@ -18,7 +18,8 @@ import torch
 __all__ = ["congestion_ref", "congestion_many_ref", "congestion_lp_ref",
            "fit_scores_ref", "fit_scores_many_ref", "span_mask",
            "sub_phase_ref", "two_phase_ref", "wkv_step_ref", "wkv_ref",
-           "wkv_backward_ref", "linear_scan_ref", "linear_scan_backward_ref"]
+           "wkv_backward_ref", "wkv_chunked_ref", "wkv_chunked_backward_ref",
+           "linear_scan_ref", "linear_scan_backward_ref"]
 
 _EPS = 1e-7  # the placement engines' feasibility slack
 
@@ -299,11 +300,13 @@ def wkv_step_ref(state, r_t, k_t, v_t, w_t, u):
     return y, new
 
 
-def wkv_ref(r, k, v, w, u):
+def wkv_ref(r, k, v, lw, u):
     """The RWKV-6 recurrence over time from a zero state, one step at a
-    time.  r, k, v, w: (B, S, H, N); u: (H, N).  Returns (y (B, S, H, N),
-    the final state (B, H, N, N)), both float32."""
+    time.  r, k, v, lw: (B, S, H, N), lw the log-decays (w = exp(lw), lw
+    may be -inf); u: (H, N).  Returns (y (B, S, H, N), the final state
+    (B, H, N, N)), both float32."""
     B, S, H, N = r.shape
+    w = torch.exp(lw)
     state = torch.zeros((B, H, N, N), dtype=_wide(w).dtype, device=r.device)
     ys = []
     for t in range(S):
@@ -313,14 +316,15 @@ def wkv_ref(r, k, v, w, u):
     return torch.stack(ys, dim=1), state
 
 
-def wkv_backward_ref(r, k, v, w, u, gy, gs):
+def wkv_backward_ref(r, k, v, lw, u, gy, gs):
     """The gradients of ``wkv_ref`` by the reverse recurrence, given gy
     (B, S, H, N) and gs (B, H, N, N): dS_T = gs, dS_{t-1} = w_t dS_t +
     r_t^T gy_t.  The states S_{t-1} come from a forward pass kept in full
     (never from dividing by w_t, which may be 0).  Returns (gr, gk, gv in
-    the inputs' types, gw and gu (H, N) float32, or float64 for float64
-    inputs)."""
+    the inputs' types, glw = gw * w and gu (H, N) float32, or float64 for
+    float64 inputs)."""
     B, S, H, N = r.shape
+    w = torch.exp(lw)
     f32 = dict(dtype=_wide(w).dtype, device=r.device)
     state = torch.zeros((B, H, N, N), **f32)
     states = []
@@ -343,7 +347,201 @@ def wkv_backward_ref(r, k, v, w, u, gy, gs):
         gw[:, t] = (ds * states[t]).sum(-1)
         gu += (r_t * k_t * gyv).sum(0)
         ds = w_t[..., None] * ds + r_t[..., None] * g_t[..., None, :]
-    return gr.to(r.dtype), gk.to(k.dtype), gv.to(v.dtype), gw, gu
+    return gr.to(r.dtype), gk.to(k.dtype), gv.to(v.dtype), gw * w, gu
+
+
+# --- the chunked form of csrc/wkv.cu, step for step --------------------------
+
+WKV_CHUNK = 64         # L: time steps a chunk
+WKV_SUB = 16           # sub-chunks of the intra-chunk decayed scores
+WKV_LEAF = 8          # blocks of the scores computed elementwise
+WKV_LW_FLOOR = -1000.0  # log-decays are clamped here (exp underflows anyway)
+
+
+def _wkv_chunks(x, S_pad: int):
+    """(B, S, H, N) -> (B, H, nc, L, N), zero past S."""
+    B, S, H, N = x.shape
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, S_pad - S))
+    return x.reshape(B, S_pad // WKV_CHUNK, WKV_CHUNK, H, N).permute(
+        0, 3, 1, 2, 4)
+
+
+def _wkv_unchunk(x, S: int):
+    B, H, nc, L, N = x.shape
+    return x.permute(0, 2, 3, 1, 4).reshape(B, nc * L, H, N)[:, :S]
+
+
+def _wkv_chunk_inputs(r, k, v, lw, *more):
+    """The chunked operands in the working type (float64 for float64
+    inputs, else float32) and the log-decay prefix sums in float64: C[t]
+    the sum of the clamped lw over the chunk's steps 0..t, Cm[t] = C[t-1]
+    (Cm[0] = 0).  Padding steps carry lw = 0 and zero operands."""
+    S = r.shape[1]
+    S_pad = -(-S // WKV_CHUNK) * WKV_CHUNK
+    wd = torch.promote_types(lw.dtype, torch.float32)
+    R, K, V, *M = (_wkv_chunks(x.to(wd), S_pad) for x in (r, k, v) + more)
+    C = torch.cumsum(_wkv_chunks(lw.double().clamp(min=WKV_LW_FLOOR),
+                                 S_pad), dim=-2)
+    Cm = torch.nn.functional.pad(C, (0, 0, 1, 0))[..., :-1, :]
+    return wd, R, K, V, M, C, Cm
+
+
+def _e(x, wd):
+    """exp of a float64 log-decay difference (<= 0), in the working type."""
+    return torch.exp(x.to(wd))
+
+
+def _wkv_scores(R, K, Cm, C, u, wd):
+    """A[t, s] = sum_i r_t k_s exp(C[t-1] - C[s]) for s < t and the bonus
+    r_t . (u k_t) on the diagonal, (..., L, L).  Sub-chunk a's rows against
+    earlier sub-chunks: r scaled to the sub-chunk's anchor f = 16a - 1 and k
+    from it, both factors <= 1.  Inside a sub-chunk, its second half
+    against its first the same way, anchored at the first half's end;
+    inside each half of WKV_LEAF steps, elementwise."""
+    L, SUB = WKV_CHUNK, WKV_SUB
+    A = torch.zeros(R.shape[:-1] + (L,), dtype=wd, device=R.device)
+
+    def anchored(rows, cols, anchor):
+        Ca = C[..., anchor:anchor + 1, :]
+        return (R[..., rows, :] * _e(Cm[..., rows, :] - Ca, wd)) \
+            @ (K[..., cols, :] * _e(Ca - C[..., cols, :], wd)).transpose(-1, -2)
+
+    def block(o, w):
+        if w > WKV_LEAF:
+            h = w // 2
+            A[..., o + h:o + w, o:o + h] = anchored(
+                slice(o + h, o + w), slice(o, o + h), o + h - 1)
+            block(o, h)
+            block(o + h, h)
+            return
+        rows = slice(o, o + w)
+        low = torch.ones(w, w, dtype=torch.bool, device=R.device).tril(-1)
+        d = Cm[..., rows, None, :] - C[..., None, rows, :]  # (.., t, s, N)
+        E = _e(torch.where(low[:, :, None], d, float("-inf")), wd)
+        A[..., rows, rows] = (R[..., rows, None, :] * K[..., None, rows, :]
+                              * E).sum(-1)
+
+    for a in range(L // SUB):
+        o = a * SUB
+        if a:
+            A[..., o:o + SUB, :o] = anchored(slice(o, o + SUB), slice(0, o),
+                                             o - 1)
+        block(o, SUB)
+    diag = (R * u.to(wd)[:, None, None, :] * K).sum(-1)
+    return A + torch.diag_embed(diag)
+
+
+def _wkv_states(K, V, C, wd):
+    """Per chunk the state increment (k exp(C_end - C))^T v and the decay
+    exp(C_end), then the serial pass: the state entering each chunk and,
+    last, the final state (..., nc + 1, N, N)."""
+    Cend = C[..., -1:, :]
+    dS = (K * _e(Cend - C, wd)).transpose(-1, -2) @ V
+    dec = _e(Cend, wd).transpose(-1, -2)  # (..., nc, N, 1)
+    B, H, nc, N, _ = dS.shape
+    S_in = torch.zeros((B, H, nc + 1, N, N), dtype=wd, device=K.device)
+    for c in range(nc):
+        S_in[:, :, c + 1] = dec[:, :, c] * S_in[:, :, c] + dS[:, :, c]
+    return S_in, dec
+
+
+def wkv_chunked_ref(r, k, v, lw, u):
+    """``wkv_ref`` by the chunked form that ``csrc/wkv.cu`` runs: chunks of
+    WKV_CHUNK steps, float64 prefix sums of the clamped log-decays, the
+    intra-chunk scores by sub-chunks of WKV_SUB, halved down to blocks of
+    WKV_LEAF (no factor above 1), one
+    serial pass over chunk states, then y = A v + (r exp(C[t-1])) S_in.
+    Used by the tests only."""
+    B, S, H, N = r.shape
+    wd, R, K, V, _, C, Cm = _wkv_chunk_inputs(r, k, v, lw)
+    S_in, _ = _wkv_states(K, V, C, wd)
+    A = _wkv_scores(R, K, Cm, C, u, wd)
+    y = A @ V + (R * _e(Cm, wd)) @ S_in[:, :, :-1]
+    return _wkv_unchunk(y, S), S_in[:, :, -1]
+
+
+def wkv_chunked_backward_ref(r, k, v, lw, u, gy, gs):
+    """``wkv_backward_ref`` by the chunked form of ``csrc/wkv.cu``: the
+    chunk states S_in, the reverse pass over chunks dS_out[c-1] =
+    exp(C_end) dS_out[c] + (r exp(C[t-1]))^T gy, then per chunk gr, gk, gv
+    as products against S_in, dS_out, A and dA = gy v^T, and glw by the
+    reverse cumulative sum identity, with no division:
+
+        glw_s = rowsum(dS_out * S_out) + sum_{t > s} r_t gr'_t
+                - sum_{t >= s} k_t gk'_t
+
+    (gr', gk' without the bonus terms), glw_0 = 0 and glw = 0 wherever
+    the step's decay is 0.  gu summed in
+    float64.  Returns
+    (gr, gk, gv in the inputs' types, glw and gu in the working type)."""
+    B, S, H, N = r.shape
+    L, SUB = WKV_CHUNK, WKV_SUB
+    wd, R, K, V, (G,), C, Cm = _wkv_chunk_inputs(r, k, v, lw, gy)
+    S_in, dec = _wkv_states(K, V, C, wd)
+    nc = S_in.shape[2] - 1
+    ddS = (R * _e(Cm, wd)).transpose(-1, -2) @ G
+    dS_out = torch.empty_like(S_in[:, :, :-1])
+    d = gs.to(wd)
+    for c in reversed(range(nc)):
+        dS_out[:, :, c] = d
+        d = dec[:, :, c] * d + ddS[:, :, c]
+    A = _wkv_scores(R, K, Cm, C, u, wd)
+    low = torch.ones(L, L, dtype=torch.bool, device=r.device).tril()
+    dA = torch.where(low, G @ V.transpose(-1, -2), 0.0)
+    bonus = torch.diagonal(dA, dim1=-2, dim2=-1)[..., None]  # gy_t . v_t
+    Sn = S_in[:, :, :-1]
+    Cend = C[..., -1:, :]
+    gv = A.transpose(-1, -2) @ G + (K * _e(Cend - C, wd)) @ dS_out
+    gr = torch.empty_like(R)
+    gk = torch.empty_like(K)
+    tri = torch.ones(SUB, SUB, dtype=torch.bool,
+                     device=r.device).tril(-1)[:, :, None]
+    zero = torch.zeros((), dtype=wd, device=r.device)
+    for a in range(L // SUB):
+        rows = slice(a * SUB, (a + 1) * SUB)
+        # gr: dA's earlier columns anchored at f = 16a - 1, and S_in
+        Cf = Cm[..., a * SUB:a * SUB + 1, :]
+        acc = zero
+        if a:
+            Kf = K[..., :a * SUB, :] * _e(Cf - C[..., :a * SUB, :], wd)
+            acc = dA[..., rows, :a * SUB] @ Kf
+        gr[..., rows, :] = _e(Cm[..., rows, :] - Cf, wd) * acc \
+            + _e(Cm[..., rows, :], wd) * (G[..., rows, :]
+                                          @ Sn.transpose(-1, -2))
+        # gk: dA's later rows anchored at e = 16a + 15, and dS_out
+        Ce = C[..., (a + 1) * SUB - 1:(a + 1) * SUB, :]
+        acc = zero
+        if a < L // SUB - 1:
+            Rf = R[..., (a + 1) * SUB:, :] \
+                * _e(Cm[..., (a + 1) * SUB:, :] - Ce, wd)
+            acc = dA[..., (a + 1) * SUB:, rows].transpose(-1, -2) @ Rf
+        gk[..., rows, :] = _e(Ce - C[..., rows, :], wd) * acc \
+            + _e(Cend - C[..., rows, :], wd) * (V[..., rows, :]
+                                                @ dS_out.transpose(-1, -2))
+        # inside the sub-chunk, elementwise
+        dd = Cm[..., rows, None, :] - C[..., None, rows, :]  # (.., t, s, N)
+        E = _e(torch.where(tri, dd, float("-inf")), wd)
+        P = dA[..., rows, rows, None] * E
+        gr[..., rows, :] += (P * K[..., None, rows, :]).sum(-2)
+        gk[..., rows, :] += (P * R[..., rows, None, :]).sum(-3)
+    S_out = S_in[:, :, 1:]
+    Kc = (dS_out * S_out).double().sum(-1)[..., None, :]  # (.., 1, N)
+    P = (R * gr).double()
+    Q = (K * gk).double()
+    rev = lambda x: torch.flip(torch.cumsum(torch.flip(x, [-2]), -2), [-2])
+    glw = (Kc + rev(P) - P - rev(Q)).to(wd)
+    # w_0 multiplies the zero initial state: glw_0 is exactly 0; so is glw
+    # wherever the step's decay exp(C[t] - C[t-1]) = w is 0 in the working
+    # type, as gw * w is (the sums above would leave their rounding there,
+    # which the model's chain rule scales by |lw|)
+    glw[:, :, 0, 0] = 0.0
+    glw = torch.where(_e(C - Cm, wd) == 0, 0.0, glw)
+    uw = u.to(wd)[:, None, None, :]
+    gr = gr + uw * K * bonus
+    gk = gk + uw * R * bonus
+    gu = (R * K * bonus).double().sum((0, 2, 3)).to(wd)
+    return (_wkv_unchunk(gr, S).to(r.dtype), _wkv_unchunk(gk, S).to(k.dtype),
+            _wkv_unchunk(gv, S).to(v.dtype), _wkv_unchunk(glw, S), gu)
 
 
 def linear_scan_ref(a, b):

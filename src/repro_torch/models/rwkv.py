@@ -6,7 +6,8 @@ State per head is an (N, N) outer-product accumulator:
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 
-with w_t = exp(-exp(wproj(x_t))) the data-dependent decay.  Ported from
+with w_t = exp(-exp(wproj(x_t))) the data-dependent decay, carried as its
+logarithm lw_t = -exp(wproj(x_t)) into the recurrence.  Ported from
 ``repro.models.rwkv``: the reference's ``lax.scan`` over time is the
 ``repro_torch::wkv`` operator (``kernels.wkv``: the hand-written kernel on
 the card, the plain loop on the CPU, one operator a layer in a trace), and
@@ -105,13 +106,14 @@ def _projections(x, xs, p, head_dim: int):
     v = _mix(x, xs, p.mu_v) @ p.w_v
     g = _mix(x, xs, p.mu_g) @ p.w_g
     wx = _mix(x, xs, p.mu_w).float() @ p.w_decay
-    w = torch.exp(-torch.exp(wx + p.decay_bias))  # (B, S, d) in (0, 1)
+    # the log-decay (B, S, d), <= 0; exp(lw) is the reference's w
+    lw = -torch.exp(wx + p.decay_bias)
     shp = (B, S, H, head_dim)
     # keep the head axis sharded over 'model' through the recurrence
     return tuple(
         constrain(a.reshape(shp), "batch", None, "heads", None)
         for a in (r, k, v)
-    ) + (g, constrain(w.reshape(shp), "batch", None, "heads", None))
+    ) + (g, constrain(lw.reshape(shp), "batch", None, "heads", None))
 
 
 def _group_norm(y, scale):
@@ -123,13 +125,13 @@ def _group_norm(y, scale):
     return yn.reshape(B, S, H * N) * scale
 
 
-def _wkv_scan(r, k, v, w, u):
-    """The recurrence over time on (B, S, H, N) inputs, from a zero state;
-    ``u`` is the bonus broadcast to that shape.  Returns (y (B, S, H, N),
-    the final state as (B, 1, H, N * N)), both float32."""
+def _wkv_scan(r, k, v, lw, u):
+    """The recurrence over time on (B, S, H, N) inputs and log-decays lw,
+    from a zero state; ``u`` is the bonus broadcast to that shape.  Returns
+    (y (B, S, H, N), the final state as (B, 1, H, N * N)), both float32."""
     B, S, H, N = r.shape
     y, S_state = wkv(r.contiguous(), k.contiguous(), v.contiguous(),
-                     w.contiguous(), u[0, 0].contiguous())
+                     lw.contiguous(), u[0, 0].contiguous())
     return y, S_state.reshape(B, 1, H, N * N)
 
 
@@ -139,12 +141,12 @@ def timemix_scan(x, x_prev, p, head_dim: int):
     B, S, d = x.shape
     H = d // head_dim
     xs = _shift(x, x_prev)
-    r, k, v, g, w = _projections(x, xs, p, head_dim)
+    r, k, v, g, lw = _projections(x, xs, p, head_dim)
     # the bonus laid out like r (a view): the scan runs on each device's
     # batch rows and heads alone (``shard_local``)
     u = constrain(p.u_bonus.expand(B, S, H, head_dim), "batch", None,
                   "heads", None)
-    y, S_state = shard_local(_wkv_scan, r, k, v, w, u, outputs=2)
+    y, S_state = shard_local(_wkv_scan, r, k, v, lw, u, outputs=2)
     S_state = S_state.reshape(B, H, head_dim, head_dim)
     y = _group_norm(y, p.ln_x).to(x.dtype)
     out = (y * F.silu(g)) @ p.w_out
@@ -154,10 +156,11 @@ def timemix_scan(x, x_prev, p, head_dim: int):
 def timemix_step(x_t, state, p, head_dim: int):
     """Decode: x_t (B, d); state = (S (B,H,N,N) fp32, x_prev (B, d))."""
     S_state, x_prev = state
-    r, k, v, g, w = _projections(x_t[:, None, :], x_prev[:, None, :], p,
-                                 head_dim)
-    y, S_new = wkv_step_ref(S_state, r[:, 0], k[:, 0], v[:, 0], w[:, 0],
-                            p.u_bonus)
+    r, k, v, g, lw = _projections(x_t[:, None, :], x_prev[:, None, :], p,
+                                  head_dim)
+    # exp(-exp(.)) in the reference's float32 operations: w bit-equal to it
+    y, S_new = wkv_step_ref(S_state, r[:, 0], k[:, 0], v[:, 0],
+                            torch.exp(lw[:, 0]), p.u_bonus)
     y = _group_norm(y[:, None], p.ln_x)[:, 0].to(x_t.dtype)
     out = (y * F.silu(g[:, 0])) @ p.w_out
     return out, (S_new, x_t)

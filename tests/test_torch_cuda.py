@@ -43,10 +43,14 @@ card, loss within 1e-4 abs and every gradient within 1e-4 of its own max
 (``tests/_torch_train_card.py``, shared with ``chip_smoke.py`` phase 14b);
 ``launch.train`` on the card by default; a CPU checkpoint restored onto the
 card bit-equal.  The recurrences (``wkv.cu``, ``scan.cu``): the WKV forward
-and backward within 1e-4 of each output's max |value| of the plain loops
+and backward (the chunked kernels, at lengths around and between their
+64-step chunks, a tenth of the decays exactly 0) within 1e-4 of each
+output's max |value| of the plain loops
 (bfloat16 outputs within two bfloat16 roundings more), the linear scan
 bit-equal to its plain loops (both round the multiply and the add apart),
-and the recurrent smoke models launching them.
+the model's decay gradients through the chunked backward within 1e-4 of
+each one's max |value| of the CPU's where half the decays underflow, and
+the recurrent smoke models launching them.
 """
 
 import numpy as np
@@ -891,37 +895,62 @@ def test_checkpoint_restores_onto_the_card(dev, tmp_path):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,N", [(1, 1, 1, 8), (2, 70, 3, 16),
-                                     (1, 33, 2, 32), (2, 65, 4, 64)])
+                                     (1, 33, 2, 32), (2, 65, 4, 64),
+                                     (1, 63, 2, 64), (1, 128, 1, 16)])
 def test_wkv_matches_plain(dev, dtype, B, S, H, N):
-    """Forward and backward against the plain loops: float32 outputs within
-    1e-4 of each one's max |value| (sums in another order), bfloat16 ones
-    within two bfloat16 roundings more; a tenth of the decays exactly 0."""
+    """Forward and backward (the chunked kernels, chunks of 64 steps)
+    against the plain loops, at lengths around and between chunks: float32
+    outputs within 1e-4 of each one's max |value| (sums in another order),
+    bfloat16 ones within two bfloat16 roundings more; a tenth of the decays
+    exactly 0 (log-decays -inf, or below the kernels' clamp)."""
     from repro_torch.kernels import wkv as kwkv
 
     g = torch.Generator(device=dev).manual_seed(B * S + N)
     r, k, v = (torch.randn((B, S, H, N), generator=g, device=dev) * 0.5
                for _ in range(3))
     r, k, v = r.to(dtype), k.to(dtype), v.to(dtype)
-    w = torch.exp(-torch.exp(torch.randn((B, S, H, N), generator=g,
-                                         device=dev) - 2.0))
-    w[torch.rand(w.shape, generator=g, device=dev) < 0.1] = 0.0
+    lw = -torch.exp(torch.randn((B, S, H, N), generator=g, device=dev) - 2.0)
+    pick = torch.rand(lw.shape, generator=g, device=dev)
+    lw[pick < 0.05] = -float("inf")
+    lw[(pick >= 0.05) & (pick < 0.1)] = -2000.0
     u = torch.randn((H, N), generator=g, device=dev)
     gy = torch.randn((B, S, H, N), generator=g, device=dev)
     gs = torch.randn((B, H, N, N), generator=g, device=dev)
     before = (kwkv.wkv_forward.launches, kwkv.wkv_backward_launch.launches)
-    got = kwkv.wkv_forward(r, k, v, w, u) + kwkv.wkv_backward_launch(
-        r, k, v, w, u, gy, gs)
+    got = kwkv.wkv_forward(r, k, v, lw, u) + kwkv.wkv_backward_launch(
+        r, k, v, lw, u, gy, gs)
     torch.cuda.synchronize()
     assert (kwkv.wkv_forward.launches, kwkv.wkv_backward_launch.launches) \
         == (before[0] + 1, before[1] + 1)
-    want = ref.wkv_ref(r, k, v, w, u) + ref.wkv_backward_ref(
-        r, k, v, w, u, gy, gs)
+    want = ref.wkv_ref(r, k, v, lw, u) + ref.wkv_backward_ref(
+        r, k, v, lw, u, gy, gs)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         a, b = a.double(), b.double()
         rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
         lim = rtol * b.abs() + 1e-4 * float(b.abs().max())
         assert bool(((a - b).abs() <= lim).all())
+
+
+def test_wkv_decay_gradients_where_decays_underflow(dev):
+    """The model's parameter gradients through ``timemix_scan`` on the card
+    (the chunked backward) against the CPU's plain reverse loop, with about
+    half the decays underflowing to 0 and lw down to about -17000: every
+    gradient, ``w_decay``, ``decay_bias`` and ``mu_w`` among them, within
+    1e-4 of its max |value| (``tests/_torch_wkv_decay.py``).  The kernel's
+    glw is exactly 0 where exp(lw) is, as the loop's gw * w is; the chain
+    rule scales glw by |lw| there."""
+    from _torch_wkv_decay import RTOL as GRAD_RTOL
+    from _torch_wkv_decay import timemix_grads, worst
+
+    from repro_torch.kernels import wkv as kwkv
+
+    want = timemix_grads("cpu")
+    before = kwkv.wkv_backward_launch.launches
+    got = timemix_grads(dev)
+    assert kwkv.wkv_backward_launch.launches == before + 1
+    errs = worst(got, want, want)
+    assert max(errs.values()) < GRAD_RTOL, errs
 
 
 def test_wkv_refuses_what_it_does_not_take(dev):
@@ -931,9 +960,12 @@ def test_wkv_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="N in"):
         kwkv.wkv_forward(x, x, x, x, torch.zeros((1, 128), device=dev))
     x = torch.zeros((1, 2, 1, 16), device=dev)
+    # every other column: strided for real (a transpose about a dimension
+    # of size 1 still counts as contiguous)
+    strided = torch.zeros((1, 2, 1, 32), device=dev)[..., ::2]
+    assert not strided.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
-        kwkv.wkv_forward(x, x, x, x.transpose(1, 2).contiguous()
-                         .transpose(1, 2), torch.zeros((1, 16), device=dev))
+        kwkv.wkv_forward(x, x, x, strided, torch.zeros((1, 16), device=dev))
 
 
 @pytest.mark.parametrize("B,S,W", [(1, 1, 1), (2, 7, 300), (4, 513, 4096)])

@@ -9,10 +9,10 @@ What is held, and how closely:
     |value| (float32 sums over time in another order).  The reference's
     recurrence is the body of its ``lax.scan`` inside ``timemix_scan`` and is
     reached only through it; its parameters carry r, k, v (w_r, w_k, w_v),
-    w (w_decay, decay_bias) and u (u_bonus);
+    the log-decay lw (w_decay, decay_bias) and u (u_bonus);
   * the plain reverse loop against autograd through the plain forward loop,
-    both in float64, with decays that are exactly 0: 1e-12 of each
-    gradient's max |value| (the same sums in another order);
+    both in float64, with decays that are exactly 0 (lw = -inf): 1e-12 of
+    each gradient's max |value| (the same sums in another order);
   * the operator on the CPU against the plain loops: bit-equal (it runs
     them); its fake implementation's shapes and types on ``meta``; its FLOP
     formula against ``launch.hlo_cost.OpCounter``'s count of the plain loop;
@@ -49,17 +49,17 @@ def _rel(a, b) -> float:
 
 
 def _inputs(seed, B, S, H, N, dtype=np.float32, zeros=0.1):
-    """r, k, v, w, u, gy, gs as numpy arrays: w = exp(-exp(x)), a share
-    ``zeros`` of them exactly 0 (x large enough to underflow)."""
+    """r, k, v, lw, u, gy, gs as numpy arrays: the log-decays lw = -exp(x),
+    a share ``zeros`` of them -inf (decays exactly 0)."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, S, H, N)) * 0.5 for _ in range(3))
     x = rng.standard_normal((B, S, H, N)) * 1.5 - 2.0
-    w = np.exp(-np.exp(x))
-    w[rng.random(w.shape) < zeros] = 0.0
+    lw = -np.exp(x)
+    lw[rng.random(lw.shape) < zeros] = -np.inf
     u = rng.standard_normal((H, N)) * 0.5
     gy = rng.standard_normal((B, S, H, N))
     gs = rng.standard_normal((B, H, N, N)) * 0.1
-    return [a.astype(dtype) for a in (r, k, v, w, u, gy, gs)]
+    return [a.astype(dtype) for a in (r, k, v, lw, u, gy, gs)]
 
 
 def _torch(arrays, requires_grad=False):
@@ -121,15 +121,15 @@ def test_timemix_scan_against_reference_forward_and_grad(B, S, d, N):
                                    (2, 33, 1, 16)])
 def test_plain_backward_is_the_gradient_of_the_plain_loop(shape):
     """Every input's gradient, u's included, where a tenth of the decays
-    are exactly 0 (the reverse loop never divides by w)."""
+    are exactly 0 (the reverse loop never divides by w; glw = gw * w)."""
     arrays = _inputs(sum(shape), *shape, dtype=np.float64)
     ins = _torch(arrays[:5], requires_grad=True)
     gy, gs = _torch(arrays[5:])
-    assert int((ins[3] == 0).sum()) > 0
+    assert int((torch.exp(ins[3]) == 0).sum()) > 0
     y, s = ref.wkv_ref(*ins)
     auto = torch.autograd.grad((y * gy).sum() + (s * gs).sum(), ins)
     plain = ref.wkv_backward_ref(*[t.detach() for t in ins], gy, gs)
-    for name, a, b in zip("rkvwu", plain, auto):
+    for name, a, b in zip(("r", "k", "v", "lw", "u"), plain, auto):
         assert a.dtype == torch.float64
         assert _rel(a, b) < RTOL_F64, name
 
@@ -157,15 +157,15 @@ def test_fake_implementation_on_meta(dtype):
     B, S, H, N = 3, 5, 4, 16
     r, k, v = (torch.empty((B, S, H, N), dtype=dtype, device="meta",
                            requires_grad=True) for _ in range(3))
-    w = torch.empty((B, S, H, N), device="meta", requires_grad=True)
+    lw = torch.empty((B, S, H, N), device="meta", requires_grad=True)
     u = torch.empty((H, N), device="meta", requires_grad=True)
-    y, s = kwkv.wkv(r, k, v, w, u)
+    y, s = kwkv.wkv(r, k, v, lw, u)
     assert (y.shape, y.dtype, y.device.type) == ((B, S, H, N),
                                                  torch.float32, "meta")
     assert (s.shape, s.dtype) == ((B, H, N, N), torch.float32)
-    grads = torch.autograd.grad((y, s), (r, k, v, w, u),
+    grads = torch.autograd.grad((y, s), (r, k, v, lw, u),
                                 (torch.ones_like(y), torch.ones_like(s)))
-    for g, x in zip(grads, (r, k, v, w, u)):
+    for g, x in zip(grads, (r, k, v, lw, u)):
         assert (g.shape, g.dtype, g.device.type) == (x.shape, x.dtype,
                                                      "meta")
 
@@ -216,18 +216,18 @@ def test_one_operator_per_layer_in_a_meta_trace():
 
 def test_wrappers_refuse_what_the_kernel_does_not_take():
     arrays = _inputs(5, 1, 3, 2, 8)
-    r, k, v, w, u = _torch(arrays[:5])
+    r, k, v, lw, u = _torch(arrays[:5])
     gy, gs = _torch(arrays[5:])
-    meta = [t.to("meta") for t in (r, k, v, w, u)]
+    meta = [t.to("meta") for t in (r, k, v, lw, u)]
     with pytest.raises(ValueError, match="unsupported device"):
         kwkv.wkv_forward(*meta)
     with pytest.raises(ValueError, match="unsupported device"):
         kwkv.wkv_backward_launch(*meta, gy.to("meta"), gs.to("meta"))
-    with pytest.raises(TypeError, match="w must be"):
-        kwkv.wkv_forward(r, k, v, w.double(), u)
+    with pytest.raises(TypeError, match="lw must be"):
+        kwkv.wkv_forward(r, k, v, lw.double(), u)
     with pytest.raises(TypeError, match="k must be"):
-        kwkv.wkv_forward(r, k.bfloat16(), v, w, u)
+        kwkv.wkv_forward(r, k.bfloat16(), v, lw, u)
     with pytest.raises(ValueError, match="u must be"):
-        kwkv.wkv_forward(r, k, v, w, u[:1])
+        kwkv.wkv_forward(r, k, v, lw, u[:1])
     with pytest.raises(ValueError, match="gs must be"):
-        kwkv.wkv_backward_launch(r, k, v, w, u, gy, gs[:, :1])
+        kwkv.wkv_backward_launch(r, k, v, lw, u, gy, gs[:, :1])
