@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json] [--phase 15|16]
+    python3 chip_smoke.py [--out results.json] [--phase 10|15|16]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -9,7 +9,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile every CUDA kernel of ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (all at once) and print ptxas' registers, shared memory and
    spills per kernel;
-3. edges: each kernel against its plain PyTorch version at edge shapes;
+3. edges: each kernel against its plain PyTorch version at edge shapes,
+   then past the kernels' old width limits: the congestion kernel at K =
+   9000 and at m * D = 8280 (its column axis tiled; launch plans held to
+   ``congestion.column_tiles``), the compiled stepper at D = 257 and 600
+   and the two_phase kernel at D = 33, 64 and 276, bit-equal, with rows
+   spilled past shared memory.  Wherever m * D fits one column tile, every
+   launch plan the script reports is held to the plan the kernel picked
+   before the columns were tiled (``tests/_torch_congestion_plan.py``);
 4. main path: ``FleetEngine(solver=SolverConfig(operator="pallas"),
    placement=PlacementConfig(backend="kernel")).evaluate`` over 16 Table-I
    instances (n=1000, m=10, D=5, T=24, seeds 0..15), all four algorithms,
@@ -115,6 +122,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``smem_rows`` and spilled lanes.  Both print iterations and convergence
    per lane, lp_s and place_s, and the kernels' times and bounds at these
    shapes; the kernels line carries each kernel's phase-10 launches.
+   (c) A wide constrained fleet past every old width limit: 4 instances of
+   ``SyntheticSpec(n=1000, m=30, D=5, T=24, seed=s)``, each with 270
+   anti-affinity pairs and 8 exclusive tasks over disjoint tasks drawn by
+   ``np.random.default_rng(2000 + s)``, lowered to D = 276 (m * D = 8280).
+   The tol-mode compiled evaluate with ``operator="pallas"`` (counts set
+   to 0 just before and read just after, launches as in phase 9) against
+   the same evaluate with ``dense``: every lane converged, the bounds
+   bracketing each other (rel 1e-6); the protocol's placements compiled
+   and numpy lockstep bit-equal; ``rightsize(q, algo, backend="kernel")``
+   with ``check=True`` (the oracle) for the four algorithms on every
+   instance, one ``two_phase`` launch per ``two_phase`` call, instance 0
+   equal to the numpy route; then the last apply, the lp-map type-parallel
+   dispatches and lp-map-f's similarity launch replayed on the plain
+   versions and timed (kernel, plain, bound, ``torch.bmm`` for the apply,
+   launch shape and ``smem_rows``); the kernels line carries them as
+   ``wide``.  (d) The README's quickstart fleet through the legacy shim
+   ``repro_torch.core.evaluate_many`` on the card against
+   ``device="cpu"``: a legacy and a tolerance call (see
+   ``quickstart_phase``).  ``--phase 10`` runs phases 1, 2, 3, 10c and
+   10d only.
 
 11. the serving loop: ``gct_trace(TraceSpec(fleets=16, requests=160,
    n0=1000, m=10, seed=0))`` (16 admissions of 1000-task GCT-like fleets, T'
@@ -686,6 +713,28 @@ def objective_slack(a, b, tol=TOL) -> float:
                   + b.objective + b.lower_bound)
 
 
+def checked_plan(torch, cong, B, n, m, D, T, lp=True) -> dict:
+    """The launch plan the built congestion kernel picks, held to
+    ``congestion.column_tiles`` and, where m * D fits one column tile, to
+    the plan it picked before the columns were tiled
+    (``tests/_torch_congestion_plan.py``)."""
+    if str(HERE / "tests") not in sys.path:
+        sys.path.append(str(HERE / "tests"))
+    from _torch_congestion_plan import one_tile_plan
+
+    plan = cong.launch_plan(B, n, m, D, T, lp=lp)
+    what = f"launch plan at B={B} n={n} m={m} D={D} T={T} lp={lp}: {plan}"
+    if (plan["c_tile"], plan["c_tiles"]) != cong.column_tiles(m * D, T):
+        raise AssertionError(f"{what}; column tiles "
+                             f"{cong.column_tiles(m * D, T)} expected")
+    if plan["c_tiles"] == 1:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        want = one_tile_plan(B, n, m, D, T, lp, sms)
+        if {k: plan[k] for k in want} != want:
+            raise AssertionError(f"{what}; the one-tile plan is {want}")
+    return plan
+
+
 def apply_timing(torch, ref, cong, args) -> dict:
     """A recorded ``congestion_lp`` apply held against the plain version,
     then timed: kernel, plain version, ``torch.bmm`` of a prebuilt mask on a
@@ -702,7 +751,8 @@ def apply_timing(torch, ref, cong, args) -> dict:
                        span_sum_ops(B, n, Tp, C, scaled=True))
     return {
         "shape": {"B": B, "n": n, "m": m, "D": D, "T": Tp},
-        "plan": cong.launch_plan(B, n, m, D, Tp), "max_abs_err": err,
+        "plan": checked_plan(torch, cong, B, n, m, D, Tp),
+        "max_abs_err": err,
         "ms": device_ms(torch, lambda: cong.congestion_lp(start, end, w_all,
                                                           x, Tp)),
         # the plain version puts about 11 kernels on the card per call; 20
@@ -806,6 +856,92 @@ def edge_checks(torch, ref, cong, fit, dev) -> dict:
         raise AssertionError(f"threshold decisions {feas} / {feas_ref}")
     log("edges: a margin of exactly float32(-1e-7) is feasible, the next "
         "float32 below is not")
+    return dict(err)
+
+
+def wide_edge_checks(torch, ref, cong, kstep, dev) -> dict:
+    """Phase 3, past the kernels' old width limits: the congestion kernel
+    at K = 9000 (the TPU contract) and at m * D = 8280 (the LP's apply; its
+    column axis tiled), the compiled stepper at D = 257 and 600, the
+    two_phase kernel at D = 33, 64 and 276, each against its plain version:
+    congestion within rtol/atol 1e-5, the steppers bit-equal (node choices,
+    counts, stopping steps and the pool; every task's node), with the rows
+    past the shared-memory budget spilled (the inputs of
+    ``tests/test_torch_cuda.py``'s, from ``tests/_torch_stepper_inputs.py``).
+    Returns max |error| per kernel."""
+    import numpy as np
+
+    if str(HERE / "tests") not in sys.path:
+        sys.path.append(str(HERE / "tests"))
+    from _torch_stepper_inputs import sub_phase_inputs, walk_inputs
+
+    g = torch.Generator().manual_seed(24)
+    err = collections.defaultdict(float)
+
+    def spans(B, n, T):
+        s = torch.randint(0, T, (B, n), generator=g, dtype=torch.int32)
+        ln = torch.randint(0, max(T // 2, 1), (B, n), generator=g,
+                           dtype=torch.int32)
+        return s, torch.clamp(s + ln, max=T - 1)
+
+    for G, n, T, K in [(1, 8, 4, 9000), (3, 300, 40, 9000)]:
+        s, e = spans(G, n, T)
+        w = torch.rand((G, n, K), generator=g)
+        err["congestion_many"] = max(err["congestion_many"], check_congestion(
+            torch, ref, cong, s.to(dev), e.to(dev), w.to(dev), T,
+            f"G={G} n={n} T={T} K={K}"))
+        checked_plan(torch, cong, G, n, 1, K, T, lp=False)
+    for B, n, m, D, T in [(2, 300, 30, 276, 24), (1, 40, 10, 820, 4)]:
+        s, e = spans(B, n, T)
+        w_all = torch.rand((B, n, m, D), generator=g)
+        x = torch.rand((B, n, m), generator=g)
+        s[:, 2], e[:, 2], w_all[:, 2] = 0, 0, 0.0  # the pack's padding task
+        err["congestion_lp"] = max(err["congestion_lp"], check_congestion_lp(
+            torch, ref, cong, s.to(dev), e.to(dev), w_all.to(dev), x.to(dev),
+            T, f"B={B} n={n} m={m} D={D} T={T}"))
+        checked_plan(torch, cong, B, n, m, D, T)
+
+    spilled = {}
+    for A, L, T, D, scale in [(16, 40, 24, 257, 0.3), (8, 30, 24, 600, 0.2)]:
+        args, rows = sub_phase_inputs(g, A, L, T, D, scale, 0, True)
+        for sim in (False, True):
+            got_a = [t.to(dev) for t in args]
+            want_a = [t.to(dev) for t in args]
+            tel: dict = {}
+            got = kstep.sub_phase(*got_a, 1e9, True, sim, rows=rows,
+                                  telemetry=tel)
+            want = ref.sub_phase_ref(*want_a, 1e9, True, sim)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got_a[0],
+                                                           want_a[0])):
+                raise AssertionError(f"place_step at A={A} L={L} T={T} "
+                                     f"D={D} similarity={sim}: kernel "
+                                     f"differs from the plain version")
+            spilled[f"place_step D={D}"] = (tel["smem_rows"],
+                                            int(got[:A].max()))
+    rng = np.random.default_rng(24)
+    for n, P, D, T in [(200, 4, 33, 12), (300, 5, 64, 24),
+                       (400, 10, 276, 24)]:
+        for filling in (False, True):
+            args, _, rows = walk_inputs(rng, n, P, D, T, 0.3, filling,
+                                        False)
+            for sim in (False, True):
+                want = ref.two_phase_ref(*args, T, 1e9, sim, filling, rows)
+                tel = {}
+                got = kstep.two_phase_walk(*[t.to(dev) for t in args], T,
+                                           1e9, sim, filling, rows,
+                                           telemetry=tel).cpu()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"two_phase at n={n} P={P} D={D} T={T} "
+                        f"filling={filling} similarity={sim}: kernel "
+                        f"differs from the plain version")
+            spilled[f"two_phase D={D} filling={filling}"] = (
+                tel["smem_rows"], int(kstep.split_walk(want, P, n)[0].max()))
+    log(f"edges: past the old limits, congestion within rtol/atol "
+        f"{CONG_RTOL} (max |err| {dict(err)}), place_step at D = 257, 600 "
+        f"and two_phase at D = 33, 64, 276 bit-equal to their plain "
+        f"versions; (smem_rows, most rows opened) {spilled}")
     return dict(err)
 
 
@@ -1671,6 +1807,253 @@ def gct_phase(torch, np, ref, kernels, cong, report) -> dict:
     return {"launches": launches, "apply": apply, "place_step": steps,
             "max_abs_err": apply["max_abs_err"], "pool_err": pool_err}
 
+WIDE_FLEET = 4        # phase 10c's instances (seeds 0..3)
+WIDE_PAIRS = 270      # anti-affinity pairs per instance: a dimension each
+WIDE_EXCLUSIVE = 8    # exclusive tasks per instance: one dimension
+
+
+def wide_fleet(np) -> list:
+    """Phase 10c's fleet: ``SyntheticSpec(n=1000, m=30, D=5, T=24,
+    seed=s)``, s < ``WIDE_FLEET``, each with ``WIDE_PAIRS`` anti-affinity
+    pairs and ``WIDE_EXCLUSIVE`` exclusive tasks over disjoint tasks drawn
+    by ``np.random.default_rng(2000 + s)`` (``tests/test_torch_wide_dims.py``
+    draws its instances so): lowered, D = 5 + 1 + 270 = 276 and m * D =
+    8280."""
+    import dataclasses
+
+    from repro_torch.core import TaskConstraints
+    from repro_torch.workload import SyntheticSpec, synthetic_instance
+
+    problems = []
+    for s in range(WIDE_FLEET):
+        p = synthetic_instance(SyntheticSpec(n=1000, m=30, D=5, T=24,
+                                             seed=s))
+        rng = np.random.default_rng(2000 + s)
+        pool = list(rng.permutation(p.n))
+
+        def pop(k):
+            return [int(pool.pop()) for _ in range(k)]
+
+        anti = {f"anti{g}": pop(2) for g in range(WIDE_PAIRS)}
+        c = TaskConstraints.from_groups(p.n, anti_affinity=anti,
+                                        exclusive=pop(WIDE_EXCLUSIVE))
+        problems.append(dataclasses.replace(p, constraints=c))
+    return problems
+
+
+def wide_phase(torch, np, ref, kernels, cong, report) -> dict:
+    """Phase 10c: a wide constrained fleet past every old width limit (see
+    the module docstring).  Returns its launches per kernel and the three
+    kernels' timings at its shapes."""
+    from repro_torch.core import (ALGORITHMS, FleetEngine, PlacementConfig,
+                                  SolverConfig, lower_constraints, rightsize)
+    from repro_torch.kernels import place_step as kstep
+
+    t_phase = time.perf_counter()
+    problems = wide_fleet(np)
+    dims = sorted({lower_constraints(q).lowered.D for q in problems})
+    log(f"wide: {len(problems)} instances n=1000 m=30 with {WIDE_PAIRS} "
+        f"anti-affinity pairs and {WIDE_EXCLUSIVE} exclusive tasks each; "
+        f"lowered D {dims}")
+    runs = {}
+    for op in ("pallas", "dense"):
+        engine = FleetEngine(solver=SolverConfig(tol=TOL, iters=4000,
+                                                 operator=op),
+                             placement=PlacementConfig(engine="compiled"))
+        runs[op] = tol_evaluate(torch, kernels, cong, engine, problems)
+        res, wall, launches, _ = runs[op]
+        tm = res.timings
+        log(f"wide: {op} wall {wall:.3f} s; LP {tm['lp_s']:.3f} s, placement "
+            f"{tm['place_s']:.3f} s; launches {launches}; lanes "
+            f"{lane_report(np, res)}")
+    res, wall, launches, last = runs["pallas"]
+    check_tol_launches(res, launches, "wide")
+    B, n, m, D = last[2].shape
+    if m * D <= cong.PART_FLOATS:
+        raise AssertionError(f"wide: the last apply has m*D = {m * D}")
+    cmp = compare_tol_runs(np, res, runs["dense"][0])
+    log(f"wide: pallas against dense: {cmp['mapping_differs']} instances' "
+        f"mappings differ ({cmp['tasks_differ']} tasks), "
+        f"{cmp['cost_differs']} instances' costs differ; every lane "
+        f"converged and the bounds bracket each other (rel {BOUND_RTOL})"
+        if not cmp["errors"] else f"wide: {cmp['errors']}")
+    if cmp["errors"]:
+        raise AssertionError("wide: " + "; ".join(cmp["errors"]))
+
+    # the protocol's placements, compiled against numpy lockstep; the lp-map
+    # calls (type-parallel dispatches) recorded for the replay and timing
+    prot = protocol_against_numpy(
+        torch, np, kernels, kstep, res, "wide",
+        record={("lp-map", "first"), ("lp-map", "similarity")})
+    log(f"wide: {prot['calls']} protocol calls, compiled and numpy lockstep "
+        f"placements bit-equal, best costs equal the evaluate's; numpy "
+        f"{prot['numpy_s']:.3f} s, compiled {prot['compiled_s']:.3f} s")
+
+    # rightsize: every instance through the two_phase kernel (check=True:
+    # verify, and the oracle check_plan through assert_feasible), instance
+    # 0 also through numpy
+    rec = Recorder(torch, kstep, "two_phase_walk", every=True)
+    with rec:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sols = [[rightsize(q, algo, backend="kernel", lp_result=r)
+                 for algo in ALGORITHMS]
+                for q, r in zip(problems, res.lp_results)]
+        torch.cuda.synchronize()
+        kern_s = time.perf_counter() - t0
+        launches_r = kernels.launch_counts()
+    calls = len(problems) * (4 + 4 + 2 + 2)
+    if launches_r["two_phase"] != calls or any(
+            v for k, v in launches_r.items() if k != "two_phase"):
+        raise AssertionError(f"wide rightsize launched {launches_r}, want "
+                             f"{calls} two_phase launches only")
+    t0 = time.perf_counter()
+    q0, r0 = problems[0], res.lp_results[0]
+    for algo, a in zip(ALGORITHMS, sols[0]):
+        b = rightsize(q0, algo, lp_result=r0)
+        if not (np.array_equal(a.assign, b.assign)
+                and np.array_equal(a.node_type, b.node_type)
+                and a.cost(q0) == b.cost(q0)):
+            raise AssertionError(f"wide instance 0 {algo}: kernel route "
+                                 f"{a.cost(q0)} vs numpy {b.cost(q0)}")
+    numpy_s = time.perf_counter() - t0
+    log(f"wide: rightsize x {len(ALGORITHMS)} algorithms on "
+        f"{len(problems)} instances through the two_phase kernel: "
+        f"{launches_r['two_phase']} launches in {kern_s:.3f} s, "
+        f"{len(problems) * len(ALGORITHMS)} plans with 0 check_plan "
+        f"violations (check=True); instance 0 equal to the numpy route "
+        f"({numpy_s:.3f} s)")
+
+    # the three kernels at these shapes: the last apply, a type-parallel
+    # dispatch and lp-map-f's similarity launch on instance 0, each replayed
+    # on its plain version first
+    apply = apply_timing(torch, ref, cong, last)
+    pool_err, _ = replay_dispatches(torch, ref, kstep, prot["dispatches"],
+                                    prot["labels"])
+    tp = prot["modes"].index("type-parallel")
+    step = time_dispatch(torch, ref, kstep, *prot["dispatches"][tp])
+    i_walk = 11  # instance 0's last call: lp-map-f, similarity fit
+    args, kw = rec.log[i_walk]
+    work: dict = {}
+    want = ref.two_phase_ref(
+        *[a.cpu() if isinstance(a, torch.Tensor) else a for a in args],
+        kw["similarity"], kw["sequential"], kw["rows"], work=work)
+    if not (kw["similarity"] and torch.equal(
+            kstep.two_phase_walk(*args, **kw).cpu(), want)):
+        raise AssertionError("wide: lp-map-f's similarity launch differs "
+                             "from the plain version")
+    P_walk, n_walk = args[2].shape[0], args[3].shape[0]
+    steps = int(kstep.split_walk(want, P_walk, n_walk)[2].sum())
+    chain_ns = chain_ns_per_step(torch, args[0].device)
+    walk = time_walk(torch, ref, kstep, args, kw, work, steps, chain_ns)
+    log(f"wide: the last apply within rtol/atol {CONG_RTOL} of the plain "
+        f"version (max |err| {apply['max_abs_err']:.3g}); "
+        f"{len(prot['dispatches'])} type-parallel dispatches and lp-map-f's "
+        f"similarity launch replayed bit-equal")
+    log(timing_line("congestion_lp (wide)", apply))
+    log(f"timing: congestion_lp (wide) launch shape {apply['plan']}")
+    log(f"timing: place_step type-parallel (wide) at {step['shape']}: "
+        f"kernel {step['ms']:.6f} ms (device; {step['call_ms']:.6f} per "
+        f"wrapper call), plain {step['plain_ms']:.6f} (CUDA events), bound "
+        f"{step['bound_ms']:.3e} ({step['bound_by']}); smem_rows "
+        f"{step['smem_rows']}, spilled lanes {step['spilled_lanes']}")
+    log(walk_line("two_phase lp-map-f similarity (wide)", walk, chain_ns))
+    phase_s = time.perf_counter() - t_phase
+    log(f"wide: phase 10c took {phase_s:.1f} s")
+    total = {k: launches[k] + runs["dense"][2][k] + launches_r[k]
+             for k in launches}
+    report["wide"] = {
+        "lowered_D": dims, "launches": total, "phase_s": phase_s,
+        "runs": {op: {"wall_s": r[1], "timings": r[0].timings,
+                      "launches": r[2], "lanes": lane_report(np, r[0]),
+                      "entries": r[0].entries} for op, r in runs.items()},
+        "compare": cmp,
+        "protocol": {k: v for k, v in prot.items()
+                     if k not in ("dispatches", "labels", "modes")},
+        "rightsize": {"launches": launches_r, "kernel_s": kern_s,
+                      "numpy_s": numpy_s, "violations": 0},
+        "apply": apply, "place_step": step, "two_phase": walk}
+    return {"launches": total, "apply": apply, "place_step": step,
+            "two_phase": walk, "max_abs_err": apply["max_abs_err"],
+            "pool_err": pool_err}
+
+
+def quickstart_phase(torch, np, report) -> dict:
+    """Phase 10d: the quickstart fleet (``sweep_specs(SyntheticSpec(n=80,
+    m=5), seeds=2, D=(2, 5))``) through the legacy shim
+    ``repro_torch.core.evaluate_many`` on the card and with
+    ``device="cpu"``: the legacy call (``lp_iters=400``) with lower bounds
+    within rel 1e-4 and costs within rel 1e-5, and the tolerance call with
+    the compiled stepper (``lp_tol=5e-3, lp_iters=4000,
+    placement="compiled", return_stats=True``) with every lane converged and
+    the bounds within tol * (2 + 2 * both bounds), costs within rel 1e-5;
+    the same deprecation warning on both devices; the card's stepper
+    launches counted (the shim's ``operator="auto"`` is dense here)."""
+    import warnings
+
+    from repro_torch import kernels
+    from repro_torch.core import evaluate_many
+    from repro_torch.workload import (SyntheticSpec, sweep_specs,
+                                      synthetic_batch)
+
+    t_phase = time.perf_counter()
+    grid = synthetic_batch(sweep_specs(SyntheticSpec(n=80, m=5), seeds=2,
+                                       D=(2, 5)))
+    calls = {"legacy": dict(lp_iters=400),
+             "tol": dict(lp_tol=TOL, lp_iters=4000, placement="compiled",
+                         return_stats=True)}
+    out, launches = {}, {}
+    for device in (None, "cpu"):
+        for name, kw in calls.items():
+            kernels.reset_launch_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = evaluate_many(grid, device=device, **kw)
+            out[name, device] = (got, [str(w.message) for w in caught
+                                       if w.category is DeprecationWarning])
+            launches[name, device] = kernels.launch_counts()
+    for name in calls:
+        (a, wa), (b, wb) = out[name, None], out[name, "cpu"]
+        if name == "tol":
+            (a, sa), (b, sb) = a, b
+            if not all(st.converged.all() for st in sa + sb):
+                raise AssertionError("quickstart: a tol lane did not "
+                                     "converge")
+        if wa != wb or len(wa) != 1:
+            raise AssertionError(f"quickstart {name}: warnings {wa} vs {wb}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x.keys() != y.keys() or x["costs"].keys() != y["costs"].keys():
+                raise AssertionError(f"quickstart {name} {i}: keys differ")
+            slack = (LB_RTOL * y["lb"] if name == "legacy"
+                     else TOL * (2.0 + 2.0 * (x["lb"] + y["lb"])))
+            if abs(x["lb"] - y["lb"]) > slack or any(
+                    abs(x["costs"][k] / c - 1) > COST_RTOL
+                    for k, c in y["costs"].items()):
+                raise AssertionError(f"quickstart {name} {i}: card {x} vs "
+                                     f"cpu {y}")
+        log(f"quickstart: evaluate_many {calls[name]} on the card equals "
+            f"device='cpu' over {len(a)} instances; card launches "
+            f"{launches[name, None]}, cpu {launches[name, 'cpu']}")
+    # the shim's operator="auto" picks dense (no kernel) at this size; the
+    # tol call's compiled placement runs the stepper
+    if any(launches["legacy", None].values()) \
+            or not launches["tol", None]["place_step"]:
+        raise AssertionError(f"quickstart: card launches {launches}")
+    if any(v for (name, dev), got in launches.items() if dev == "cpu"
+           for v in got.values()):
+        raise AssertionError(f"quickstart: the CPU runs launched {launches}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"quickstart: phase 10d took {phase_s:.1f} s")
+    report["quickstart"] = {
+        "phase_s": phase_s,
+        "launches": {f"{name} {dev or 'card'}": got
+                     for (name, dev), got in launches.items()},
+        "entries": {f"{name} {dev or 'card'}": (got[0][0] if name == "tol"
+                                                else got[0])
+                    for (name, dev), got in out.items()}}
+    return {"launches": launches["tol", None]}
+
 
 # --- phase 11: the serving loop ----------------------------------------------
 
@@ -2301,6 +2684,41 @@ def walk_work(args, work) -> tuple[float, float]:
     return float(nbytes), float(ops)
 
 
+def time_walk(torch, ref, kstep, args, kw, work, steps, chain_ns) -> dict:
+    """One recorded two_phase launch timed: device ms per launch
+    (profiled), the plain version's and the wrapper call's ms (CUDA
+    events), its bytes/operations bound (``walk_work`` on the plain
+    version's ``work`` tally) and its latency bound (``steps`` attempts
+    times ``chain_ns``), with the rows each CTA kept in shared memory."""
+    fn = lambda: kstep.two_phase_walk(*args, **kw)  # noqa: E731
+    ms = device_ms(torch, fn, reps=20, warmup=3)
+    plain = cuda_ms(torch, lambda: ref.two_phase_ref(
+        *args, kw["similarity"], kw["sequential"], kw["rows"]),
+        reps=2, warmup=1)
+    call = cuda_ms(torch, fn, reps=20, warmup=3)
+    b_ms, b_by = bound(*walk_work(args, work), PEAK_F64_FLOPS)
+    tel: dict = {}
+    kstep.two_phase_walk(*args, **kw, telemetry=tel)
+    return {"shape": {"n": args[3].shape[0], "P": args[2].shape[0],
+                      "T": args[7], "D": args[3].shape[1],
+                      "E": args[0].shape[0], **kw,
+                      "smem_rows": tel["smem_rows"]},
+            "steps": steps, "ms": ms, "plain_ms": plain, "call_ms": call,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "latency_bound_ms": steps * chain_ns * 1e-6,
+            "ns_per_step": ms * 1e6 / max(steps, 1)}
+
+
+def walk_line(what, info, chain_ns) -> str:
+    return (f"timing: {what} at {info['shape']}: ms per launch: kernel "
+            f"{info['ms']:.6f} (device; {info['call_ms']:.6f} per wrapper "
+            f"call by CUDA events), plain {info['plain_ms']:.6f} (CUDA "
+            f"events), bound {info['bound_ms']:.3e} ({info['bound_by']}), "
+            f"latency bound {info['latency_bound_ms']:.6f} ({info['steps']} "
+            f"attempts x {chain_ns:.3f} ns barrier chain); "
+            f"{info['ns_per_step']:.1f} device ns per attempt")
+
+
 def chain_ns_per_step(torch, dev, steps: int = 1 << 17) -> float:
     """Device ns per step of ``place_step.cu``'s barrier chain: one block
     barrier and one shared-memory hand-over by a CTA shaped as the
@@ -2401,38 +2819,12 @@ def single_phase(torch, np, ref, kernels, fleet, res, report) -> dict:
     log(f"single: barrier chain {chain_ns:.3f} device ns per step (one block "
         f"barrier and one shared-memory hand-over, {1 << 17} steps)")
 
-    def timed(idx):
-        args, kw = rec.log[idx]
-        fn = lambda: kstep.two_phase_walk(*args, **kw)  # noqa: E731
-        ms = device_ms(torch, fn, reps=20, warmup=3)
-        plain = cuda_ms(torch, lambda: ref.two_phase_ref(
-            *args, kw["similarity"], kw["sequential"], kw["rows"]),
-            reps=2, warmup=1)
-        call = cuda_ms(torch, fn, reps=20, warmup=3)
-        b_ms, b_by = bound(*walk_work(args, works[idx]), PEAK_F64_FLOPS)
-        info = {"telemetry": {}}
-        kstep.two_phase_walk(*args, **kw, telemetry=info["telemetry"])
-        return {"shape": {"n": args[3].shape[0], "P": args[2].shape[0],
-                          "T": args[7], "D": args[3].shape[1],
-                          "E": args[0].shape[0], **kw,
-                          "smem_rows": info["telemetry"]["smem_rows"]},
-                "steps": steps[idx], "ms": ms, "plain_ms": plain,
-                "call_ms": call, "bound_ms": b_ms, "bound_by": b_by,
-                "latency_bound_ms": steps[idx] * chain_ns * 1e-6,
-                "ns_per_step": ms * 1e6 / max(steps[idx], 1)}
-
     # lp-map-f's two launches (first, then similarity fit)
     per_fit = {("similarity" if rec.log[i][1]["similarity"] else "first"):
-               timed(i) for i in (calls - 2, calls - 1)}
+               time_walk(torch, ref, kstep, *rec.log[i], works[i], steps[i],
+                         chain_ns) for i in (calls - 2, calls - 1)}
     for fit_name, info in per_fit.items():
-        log(f"timing: two_phase lp-map-f {fit_name} at {info['shape']}: ms "
-            f"per launch: kernel {info['ms']:.6f} (device; "
-            f"{info['call_ms']:.6f} per wrapper call by CUDA events), plain "
-            f"{info['plain_ms']:.6f} (CUDA events), bound "
-            f"{info['bound_ms']:.3e} ({info['bound_by']}), latency bound "
-            f"{info['latency_bound_ms']:.6f} ({info['steps']} attempts x "
-            f"{chain_ns:.3f} ns barrier chain); {info['ns_per_step']:.1f} "
-            f"device ns per attempt")
+        log(walk_line(f"two_phase lp-map-f {fit_name}", info, chain_ns))
 
     # rightsize(lp-map-f) by both routes, in turns
     walls = {"kernel": [], "numpy": []}
@@ -3837,9 +4229,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--phase", type=int, choices=[15, 16], default=None,
-                    help="run phases 1, 2 and this one only (no kernels "
-                         "line)")
+    ap.add_argument("--phase", type=int, choices=[10, 15, 16], default=None,
+                    help="run phases 1, 2 and this one only (10: phases "
+                         "3, 10c and 10d too; no kernels line)")
     args = ap.parse_args(argv)
 
     import os
@@ -3893,15 +4285,24 @@ def main(argv=None) -> int:
         recurrent_phase(torch, report, dev)
         return finish(torch, args, report, card, None)
     # 15a starts here and runs beside phases 3-12 (see DryrunCells)
-    cells = DryrunCells(HERE / "build" / "dryrun")
-    RUNNING.append(cells)
+    if args.phase != 10:
+        cells = DryrunCells(HERE / "build" / "dryrun")
+        RUNNING.append(cells)
     if args.phase == 15:
         dryrun_phase(torch, np, kernels, cong, report, cells)
         return finish(torch, args, report, card, None)
 
-    # 3. edges
+    # 3. edges, then past the kernels' old width limits
+    from repro_torch.kernels import place_step as kstep
+
     err = edge_checks(torch, ref, cong, fit, dev)
+    for name, e in wide_edge_checks(torch, ref, cong, kstep, dev).items():
+        err[name] = max(err.get(name, 0.0), e)
     log(f"edges: max |kernel - plain| {err}")
+    if args.phase == 10:
+        wide_phase(torch, np, ref, kernels, cong, report)
+        quickstart_phase(torch, np, report)
+        return finish(torch, args, report, card, None)
 
     # 4. main path
     spec = SyntheticSpec()  # Table I: n=1000, m=10, D=5, T=24
@@ -4050,7 +4451,7 @@ def main(argv=None) -> int:
                        span_sum_ops(G, n, Tp, K))
     kinfo["congestion_many"] = {
         "shape": {"G": G, "n": n, "T": Tp, "K": K}, "calls": 0,
-        "plan": cong.launch_plan(G, n, 1, K, Tp, lp=False),
+        "plan": checked_plan(torch, cong, G, n, 1, K, Tp, lp=False),
         "max_abs_err": max(e_g, err["congestion_many"]),
         "ms": device_ms(torch, lambda: cong.congestion_many(start_g, end_g,
                                                             w_gc, Tp)),
@@ -4077,7 +4478,7 @@ def main(argv=None) -> int:
                        span_sum_ops(1, n1c, T1c, K1c))
     kinfo["congestion"] = {
         "shape": {"G": 1, "n": n1c, "T": T1c, "K": K1c}, "calls": 0,
-        "plan": cong.launch_plan(1, n1c, 1, K1c, T1c, lp=False),
+        "plan": checked_plan(torch, cong, 1, n1c, 1, K1c, T1c, lp=False),
         "max_abs_err": e_g1,
         "ms": device_ms(torch, lambda: cong.congestion(s1c, e1c, w1c, T1c)),
         "plain_ms": device_ms(
@@ -4191,6 +4592,10 @@ def main(argv=None) -> int:
     # 10. the constrained Table-I fleet and the GCT-like fleet
     con = constrained_phase(torch, np, ref, kernels, cong, fleet, report)
     gct = gct_phase(torch, np, ref, kernels, cong, report)
+    # 10c. a wide constrained fleet (D = 276, m * D = 8280); 10d. the
+    # quickstart through the evaluate_many shim, card against CPU
+    wide = wide_phase(torch, np, ref, kernels, cong, report)
+    quick = quickstart_phase(torch, np, report)
     counter = {"congestion_many": "congestion_many",
                "congestion_lp": "congestion_many",
                "fit_scores_many": "fit_scores_many",
@@ -4198,16 +4603,28 @@ def main(argv=None) -> int:
                "two_phase": "two_phase"}
     for name, key in counter.items():
         kinfo[name]["phase10_launches"] = {
-            "constrained": con["launches"][key], "gct": gct["launches"][key]}
+            "constrained": con["launches"][key], "gct": gct["launches"][key],
+            "wide": wide["launches"][key],
+            "quickstart": quick["launches"][key]}
     kinfo["congestion_lp"]["max_abs_err"] = max(
         kinfo["congestion_lp"]["max_abs_err"], con["max_abs_err"],
-        gct["max_abs_err"])
+        gct["max_abs_err"], wide["max_abs_err"])
     kinfo["congestion_lp"]["phase10_ms"] = {
-        "constrained": con["apply"]["ms"], "gct": gct["apply"]["ms"]}
+        "constrained": con["apply"]["ms"], "gct": gct["apply"]["ms"],
+        "wide": wide["apply"]["ms"]}
     kinfo["place_step"]["phase10_ms"] = {
         "constrained": con["place_step"]["ms"],
         "gct type-parallel": gct["place_step"]["type-parallel"]["ms"],
-        "gct wave": gct["place_step"]["wave-sequential"]["ms"]}
+        "gct wave": gct["place_step"]["wave-sequential"]["ms"],
+        "wide type-parallel": wide["place_step"]["ms"]}
+    # each widened kernel at phase 10c's shapes, with its own bound
+    for name in ("congestion_lp", "place_step", "two_phase"):
+        info = wide["apply" if name == "congestion_lp" else name]
+        kinfo[name]["wide"] = {
+            key: info.get(key) for key in ("shape", "plan", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "smem_rows",
+                                           "latency_bound_ms")}
 
     # 11. the serving loop on a GCT-like trace
     serve = serve_phase(torch, np, ref, kernels, cong, report)
@@ -4283,7 +4700,7 @@ def main(argv=None) -> int:
                                               "scratch_bytes",
                                               "tol_launches",
                                               "phase10_launches",
-                                              "phase10_ms",
+                                              "phase10_ms", "wide",
                                               "phase11_launches",
                                               "phase12_launches",
                                               "phase12_ms",

@@ -3,6 +3,7 @@
 Public API of this slice:
     Problem, NodeTypes, Solution        — data model (numpy)
     rightsize, evaluate                 — single-instance solve / §VI protocol
+    evaluate_many                       — legacy kwarg shim over FleetEngine
     FleetEngine, SolverConfig,
     PlacementConfig, SweepConfig        — typed-config fleet session API
     FleetResult, PackPlan, plan_buckets — structured results + bucketing
@@ -46,7 +47,8 @@ from .lowerbound import (
     congestion_lowerbound,
     no_timeline_lowerbound,
 )
-from .api import rightsize, evaluate, ALGORITHMS, EXTENDED_ALGORITHMS
+from .api import (rightsize, evaluate, evaluate_many, ALGORITHMS,
+                  EXTENDED_ALGORITHMS)
 from .local_search import eliminate_nodes
 from .rounding import concentration_rounding
 from .lp_pdhg import solve_lp_pdhg, PDHGResult, PDHGState, SolveStats
@@ -70,7 +72,8 @@ __all__ = [
     "penalty_map", "penalty_matrix", "relative_demand", "min_penalty",
     "two_phase", "TypePool", "FIT_POLICIES", "solve_lp", "lp_map",
     "LPResult", "lp_lowerbound", "congestion_lowerbound",
-    "no_timeline_lowerbound", "rightsize", "evaluate", "ALGORITHMS",
+    "no_timeline_lowerbound", "rightsize", "evaluate", "evaluate_many",
+    "ALGORITHMS",
     "EXTENDED_ALGORITHMS", "eliminate_nodes", "concentration_rounding",
     "solve_lp_pdhg", "PDHGResult", "PDHGState",
     "SolveStats", "ProblemBatch", "pack_problems", "solve_lp_many",

@@ -15,8 +15,9 @@ For CUDA tensors each entry launches the hand-written kernel (built at
 first use) and adds one to ``congestion_many.launches``, the kernel's one
 launch counter; for CPU tensors it returns the plain version
 (``ref.congestion_many_ref``, ``ref.congestion_lp_ref``).  It never falls
-back: a CUDA build or launch that fails raises, and a shape wider than
-``MAX_COLUMNS`` columns raises ``ValueError`` before any launch.
+back: a CUDA build or launch that fails raises.  Any number of columns
+(m * D, or K) is one launch: past ``PART_FLOATS`` the kernel tiles the
+column axis (``column_tiles``).
 """
 
 from __future__ import annotations
@@ -25,20 +26,27 @@ import torch
 
 from . import ref
 
-__all__ = ["congestion_many", "congestion", "congestion_lp", "MAX_COLUMNS"]
+__all__ = ["congestion_many", "congestion", "congestion_lp", "launch_plan",
+           "column_tiles", "PART_FLOATS"]
 
-# columns (m * D for the LP's apply, K for the TPU contract) one launch takes:
-# a CTA holds every column of its time tile in kPartFloats partial sums.  It
-# must equal csrc/congestion.cu's kPartFloats, whose valid() refuses the same
-# shapes at launch time; here they fail before any launch, with the shape
-MAX_COLUMNS = 8192
+# partial sums one CTA holds (csrc/congestion.cu's kPartFloats): a column
+# tile is at most PART_FLOATS // t_tile columns wide
+PART_FLOATS = 8192
+_MIN_TILE_T = 8  # kMinTileT: fewest slots per time tile once C is tiled
 
 
-def _check_columns(cols: int, what: str):
-    if cols > MAX_COLUMNS:
-        raise ValueError(
-            f"the congestion kernel takes at most {MAX_COLUMNS} columns, got "
-            f"{what}")
+def column_tiles(C: int, T: int) -> tuple[int, int]:
+    """(column tile width, column tiles) the kernel's plan takes for C
+    columns and T slots: one tile of C while C <= ``PART_FLOATS``, else the
+    fewest tiles that keep min(T, 8) slots per time tile, as even as they
+    can be (csrc/congestion.cu ``make_plan``; ``launch_plan`` reports the
+    built kernel's own)."""
+    if C <= PART_FLOATS:
+        return C, 1
+    widest = PART_FLOATS // min(T, _MIN_TILE_T)
+    tiles = -(-C // widest)
+    width = -(-C // tiles)
+    return width, -(-C // width)
 
 
 def _check_spans(start, end, lead, what):
@@ -88,7 +96,6 @@ def congestion_many(start: torch.Tensor, end: torch.Tensor, w: torch.Tensor,
     if not _on_card(start, end, w):
         return ref.congestion_many_ref(start, end, w, T)
     G, n, K = w.shape
-    _check_columns(K, f"K={K} for w {tuple(w.shape)}")
     out = torch.empty((G, T, K), dtype=torch.float32, device=w.device)
     if G == 0 or T == 0 or K == 0:
         return out.zero_()
@@ -121,7 +128,6 @@ def congestion_lp(start: torch.Tensor, end: torch.Tensor,
     if not _on_card(start, end, w_all, x):
         return ref.congestion_lp_ref(start, end, w_all, x, Tp)
     B, n, m, D = w_all.shape
-    _check_columns(m * D, f"m*D={m * D} for w_all {tuple(w_all.shape)}")
     out = torch.empty((B, Tp, m, D), dtype=torch.float32,
                       device=w_all.device)
     if B == 0 or Tp == 0 or m == 0 or D == 0:
@@ -138,16 +144,17 @@ def launch_plan(B: int, n: int, m: int, D: int, T: int,
     columns and T slots (``lp``: the ``congestion_lp`` entry, which also
     stages x; else ``congestion_many`` with m=1, D=K): slots per time tile,
     slots per thread R, slot phases P, cluster size S, task groups W per
-    CTA, threads per CTA, staged tasks per chunk and shared bytes.  Needs
-    the built kernel."""
+    CTA, threads per CTA, staged tasks per chunk, shared bytes, column tile
+    width and column tiles.  Needs the built kernel."""
     import ctypes
 
     from . import build
 
-    info = (ctypes.c_int * 8)()
+    info = (ctypes.c_int * 10)()
     err = build.load("congestion").congestion_plan(B, n, m, D, T, int(lp),
                                                    info)
     if err != 0:
         raise ValueError(f"no launch shape for B={B} n={n} m={m} D={D} T={T}")
-    keys = ("t_tile", "R", "P", "S", "W", "threads", "chunk", "smem_bytes")
+    keys = ("t_tile", "R", "P", "S", "W", "threads", "chunk", "smem_bytes",
+            "c_tile", "c_tiles")
     return dict(zip(keys, info))

@@ -38,7 +38,15 @@
 //   before its adds.  Nothing is padded: K and T' < 32 idle no lane beyond
 //   the last warp's rounding.
 // * Long timelines are tiled over T' (32 slots per tile, fewer when C is
-//   wide), never over C.
+//   wide).  Where C is wider than one CTA's kPartFloats partial sums can
+//   hold at 8 slots, the columns are tiled too: the grid gains a column-tile
+//   axis beside the time tiles and instances, and a CTA (or cluster) owns
+//   the columns [c0, c1) of its tile, staging only that slab of w and the
+//   x columns j in [c0 / D, (c1 - 1) / D] it touches.  The fewest tiles that
+//   keep at least min(T', 8) slots per time tile are taken, as even as they
+//   can be; where C <= kPartFloats there is one column tile and the plan is
+//   the one-tile plan.  Each output element is still written once, by the
+//   CTA that finishes it: no atomics, so a launch is deterministic.
 // * Partial sums are added in a fixed order, so the result is deterministic:
 //   task groups in group order, then the cluster's ranks in rank order.
 //   Each CTA stores its partials into the shared memory of the rank that
@@ -65,6 +73,7 @@ constexpr int kStageFloats = 8192;  // staged w (and x) per chunk (32 KB)
 constexpr int kMinTasks = 8;        // fewest tasks per cluster rank and group
 constexpr int kWarpsPerSM = 16;     // warps in flight per SM the split aims at
 constexpr int kBatch = 8;           // tasks whose reads are issued together
+constexpr int kMinTileT = 8;        // fewest slots per time tile when C is tiled
 
 // 4-byte asynchronous copy global -> shared (cp.async): a thread issues all
 // of its copies of a chunk before it waits for any
@@ -101,7 +110,8 @@ congestion_many_kernel(const int32_t* __restrict__ start,
                        const float* __restrict__ w,
                        float* __restrict__ out,
                        int n, int m, int D, int T, int t_tile, int t_tiles,
-                       int P, int W, int unit_pad, int slice, int chunk) {
+                       int c_tile, int c_tiles, int P, int W, int unit_pad,
+                       int slice, int chunk) {
     // peers store into this CTA's shared memory only after every CTA of
     // the cluster has started: arrive now, wait before the first store
     cluster_arrive_relaxed();
@@ -111,24 +121,31 @@ congestion_many_kernel(const int32_t* __restrict__ start,
     const int rank = static_cast<int>(cluster.block_rank());
     const int C = m * D;
     const int row = blockIdx.x / S;
-    const int b = row / t_tiles;
-    const int t0 = (row % t_tiles) * t_tile;
+    const int bt = row / c_tiles;  // (instance, time tile)
+    const int b = bt / t_tiles;
+    const int t0 = (bt % t_tiles) * t_tile;
     const int t_eff = min(t_tile, T - t0);
-    const int tc = t_tile * C;  // partial sums of one task group
-    const int n_out = t_eff * C;
+    // this CTA's column tile [col0, col0 + cw) and the x columns it reads,
+    // j in [j_lo, j_lo + xn); one tile: every column and every x column
+    const int col0 = (row % c_tiles) * c_tile;
+    const int cw = min(c_tile, C - col0);
+    const int j_lo = col0 / D;
+    const int xn = (col0 + cw - 1) / D - j_lo + 1;
+    const int tc = t_tile * c_tile;  // partial sums of one task group
+    const int n_out = t_eff * cw;
     const int share = (n_out + S - 1) / S;  // outputs each rank finishes
 
     float* part = smem;                                          // W * tc
     float* recv = part + W * tc;                                 // S * share
     auto* s_mask = reinterpret_cast<uint32_t*>(recv + S * share);  // chunk
     auto* s_end = reinterpret_cast<int32_t*>(s_mask + chunk);    // chunk
-    float* s_w = reinterpret_cast<float*>(s_end + chunk);        // chunk * C
-    float* s_x = s_w + chunk * C;                                // chunk * m
+    float* s_w = reinterpret_cast<float*>(s_end + chunk);   // chunk * c_tile
+    float* s_x = s_w + chunk * c_tile;  // chunk * the plan's x_tile
 
     const int tid = threadIdx.x;
     const int grp = tid / unit_pad;
     const int unit0 = tid % unit_pad;
-    const int units = C * P;
+    const int units = cw * P;
 
     const int64_t base = static_cast<int64_t>(b) * n;
     const int u_lo = min(n, rank * slice);
@@ -139,18 +156,35 @@ congestion_many_kernel(const int32_t* __restrict__ start,
     for (int c0 = u_lo; c0 < u_hi; c0 += chunk) {
         const int cn = min(chunk, u_hi - c0);
         __syncthreads();  // the last chunk's readers are done
-        // the chunk's spans, w slab and x slab: contiguous, read once
+        // the chunk's spans, w slab and x slab, read once: contiguous with
+        // one column tile, else a row segment of each task
         for (int i = tid; i < cn; i += blockDim.x) {
             copy_async(s_mask + i, start + base + c0 + i);
             copy_async(s_end + i, end + base + c0 + i);
         }
-        const float* wc = w + (base + c0) * C;
-        for (int i = tid; i < cn * C; i += blockDim.x)
-            copy_async(s_w + i, wc + i);
+        const float* wc = w + (base + c0) * C + col0;
+        if (cw == C) {
+            for (int i = tid; i < cn * C; i += blockDim.x)
+                copy_async(s_w + i, wc + i);
+        } else {
+            for (int i = tid; i < cn * cw; i += blockDim.x) {
+                const int u = i / cw;
+                copy_async(s_w + i, wc + static_cast<int64_t>(u) * C
+                                        + (i - u * cw));
+            }
+        }
         if (kX) {
-            const float* xc = x + (base + c0) * m;
-            for (int i = tid; i < cn * m; i += blockDim.x)
-                copy_async(s_x + i, xc + i);
+            const float* xc = x + (base + c0) * m + j_lo;
+            if (xn == m) {
+                for (int i = tid; i < cn * m; i += blockDim.x)
+                    copy_async(s_x + i, xc + i);
+            } else {
+                for (int i = tid; i < cn * xn; i += blockDim.x) {
+                    const int u = i / xn;
+                    copy_async(s_x + i, xc + static_cast<int64_t>(u) * m
+                                            + (i - u * xn));
+                }
+            }
         }
         copy_async_wait();
         // each task's active slots in this tile, in place of its start
@@ -172,9 +206,9 @@ congestion_many_kernel(const int32_t* __restrict__ start,
         const int g_hi = cn * (grp + 1) / W;
         float* pg = part + grp * tc;
         for (int q = unit0; q < units; q += unit_pad) {
-            const int c = q % C;
-            const int ph = q / C;
-            const int j = c / D;
+            const int c = q % cw;   // the column within the tile
+            const int ph = q / cw;
+            const int j = (col0 + c) / D - j_lo;
             uint32_t bit[R];
             float acc[R];
 #pragma unroll
@@ -185,8 +219,8 @@ congestion_many_kernel(const int32_t* __restrict__ start,
             }
             // tasks in batches of kBatch: every shared-memory read of a
             // batch is issued before its first add (no branch per task)
-            const float* wp = s_w + g_lo * C + c;
-            const float* xp = s_x + g_lo * m + j;
+            const float* wp = s_w + g_lo * cw + c;
+            const float* xp = s_x + g_lo * xn + j;
             int u = g_lo;
             for (; u + kBatch <= g_hi; u += kBatch) {
                 uint32_t mk[kBatch];
@@ -195,7 +229,8 @@ congestion_many_kernel(const int32_t* __restrict__ start,
                 for (int k = 0; k < kBatch; ++k) {
                     mk[k] = s_mask[u + k];
                     // x * w rounds once, as in the plain version
-                    v[k] = kX ? __fmul_rn(wp[k * C], xp[k * m]) : wp[k * C];
+                    v[k] = kX ? __fmul_rn(wp[k * cw], xp[k * xn])
+                              : wp[k * cw];
                 }
 #pragma unroll
                 for (int k = 0; k < kBatch; ++k) {
@@ -204,10 +239,10 @@ congestion_many_kernel(const int32_t* __restrict__ start,
                         if (mk[k] & bit[r]) acc[r] += v[k];
                     }
                 }
-                wp += kBatch * C;
-                xp += kBatch * m;
+                wp += kBatch * cw;
+                xp += kBatch * xn;
             }
-            for (; u < g_hi; ++u, wp += C, xp += m) {
+            for (; u < g_hi; ++u, wp += cw, xp += xn) {
                 const uint32_t mk = s_mask[u];
                 const float v = kX ? __fmul_rn(wp[0], xp[0]) : wp[0];
 #pragma unroll
@@ -219,7 +254,7 @@ congestion_many_kernel(const int32_t* __restrict__ start,
 #pragma unroll
             for (int r = 0; r < R; ++r) {
                 if (!bit[r]) continue;
-                float* dst = pg + (ph + r * P) * C + c;
+                float* dst = pg + (ph + r * P) * cw + c;
                 *dst = first ? acc[r] : *dst + acc[r];
             }
         }
@@ -240,17 +275,25 @@ congestion_many_kernel(const int32_t* __restrict__ start,
     }
     cluster_arrive();
     cluster_wait();
-    float* o = out + (static_cast<int64_t>(b) * T + t0) * C + rank * share;
+    // output k of the tile is slot k / cw, column col0 + k % cw
+    float* o = out + (static_cast<int64_t>(b) * T + t0) * C + col0;
     const int mine = min(share, n_out - rank * share);
     for (int i = tid; i < mine; i += blockDim.x) {
         float sum = recv[i];
         for (int q = 1; q < S; ++q) sum += recv[q * share + i];
-        o[i] = sum;
+        const int k = rank * share + i;
+        if (cw == C) {
+            o[k] = sum;
+        } else {
+            const int t = k / cw;
+            o[static_cast<int64_t>(t) * C + (k - t * cw)] = sum;
+        }
     }
 }
 
 struct Plan {
-    int t_tile, t_tiles, R, P, S, W, unit_pad, slice, chunk;
+    int t_tile, t_tiles, c_tile, c_tiles, x_tile, R, P, S, W, unit_pad, slice,
+        chunk;
     int64_t rows;
     size_t smem;
 };
@@ -267,22 +310,36 @@ int sm_count() {
     return cached[dev];
 }
 
-// The launch shape for B instances of n tasks, m * D columns, T slots;
-// x_cols = m when the launch reads x, else 0.
-Plan make_plan(int64_t B, int n, int C, int x_cols, int T) {
+// The launch shape for B instances of n tasks, C = m * D columns, T
+// slots; with_x when the launch reads x (m columns per task).
+Plan make_plan(int64_t B, int n, int m, int D, int T, bool with_x) {
     Plan p{};
-    p.t_tile = min(min(kTileT, T), kPartFloats / C);
+    const int C = m * D;
+    // column tiles: one where every column fits the partial sums, else the
+    // fewest that keep min(T, kMinTileT) slots per time tile, made even
+    p.c_tiles = 1;
+    p.c_tile = C;
+    if (C > kPartFloats) {
+        const int widest = kPartFloats / min(T, kMinTileT);
+        p.c_tiles = (C + widest - 1) / widest;
+        p.c_tile = (C + p.c_tiles - 1) / p.c_tiles;
+        p.c_tiles = (C + p.c_tile - 1) / p.c_tile;  // no tile left empty
+    }
+    // x columns a tile can touch: all m with one tile, else at most the
+    // D-blocks that a run of c_tile columns meets
+    p.x_tile = with_x ? min(m, (p.c_tile + D - 2) / D + 1) : 0;
+    p.t_tile = min(min(kTileT, T), kPartFloats / p.c_tile);
     p.t_tiles = (T + p.t_tile - 1) / p.t_tile;
-    p.rows = B * p.t_tiles;
+    p.rows = B * p.t_tiles * p.c_tiles;
     // slots per thread: the largest R whose threads keep >= 70% of their
     // (slot, column) work live; else the busiest
     double best = -1.0;
     for (int R = 8; R >= 1; R /= 2) {
         const int P = (p.t_tile + R - 1) / R;
-        const int units = C * P;
+        const int units = p.c_tile * P;
         const int pad = min((units + 31) / 32 * 32, kMaxThreads);
         const int passes = (units + pad - 1) / pad;
-        const double eff = static_cast<double>(C) * p.t_tile
+        const double eff = static_cast<double>(p.c_tile) * p.t_tile
                            / (static_cast<double>(passes) * pad * R);
         if (eff > best) {
             best = eff;
@@ -294,12 +351,12 @@ Plan make_plan(int64_t B, int n, int C, int x_cols, int T) {
         }
     }
     p.P = (p.t_tile + p.R - 1) / p.R;
-    p.unit_pad = min((C * p.P + 31) / 32 * 32, kMaxThreads);
+    p.unit_pad = min((p.c_tile * p.P + 31) / 32 * 32, kMaxThreads);
     // split the tasks until about kWarpsPerSM warps per SM are in flight:
     // first over the cluster, then over task groups inside each CTA
     const int64_t target = static_cast<int64_t>(sm_count()) * kWarpsPerSM;
     const int64_t warps = p.rows * (p.unit_pad / 32);
-    const int tc = p.t_tile * C;
+    const int tc = p.t_tile * p.c_tile;
     p.W = 1;
     while (2 * p.W * p.unit_pad <= kMaxThreads && 2 * p.W * tc <= kPartFloats
            && warps * p.W < target && n >= 2 * p.W * kMinTasks)
@@ -309,7 +366,7 @@ Plan make_plan(int64_t B, int n, int C, int x_cols, int T) {
            && n >= 2 * p.S * p.W * kMinTasks)
         p.S *= 2;
     p.slice = (n + p.S - 1) / p.S;
-    const int per_task = 2 + C + x_cols;  // start, end, w row, x row
+    const int per_task = 2 + p.c_tile + p.x_tile;  // start, end, w, x
     p.chunk = max(1, min(p.slice, kStageFloats / per_task));
     const int share = (tc + p.S - 1) / p.S;
     p.smem = (static_cast<size_t>(p.W) * tc + static_cast<size_t>(p.S) * share
@@ -341,8 +398,8 @@ cudaError_t launch_r(const Plan& p, const int32_t* start, const int32_t* end,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return cudaLaunchKernelEx(&cfg, kernel, start, end, x, w, out, n, m, D, T,
-                              p.t_tile, p.t_tiles, p.P, p.W, p.unit_pad,
-                              p.slice, p.chunk);
+                              p.t_tile, p.t_tiles, p.c_tile, p.c_tiles, p.P,
+                              p.W, p.unit_pad, p.slice, p.chunk);
 }
 
 template <bool kX>
@@ -358,14 +415,13 @@ cudaError_t launch_x(const Plan& p, const int32_t* s, const int32_t* e,
 }
 
 bool valid(int B, int n, int m, int D, int T) {
-    return B > 0 && T > 0 && m > 0 && D > 0 && n >= 0
-           && static_cast<int64_t>(m) * D <= kPartFloats;
+    return B > 0 && T > 0 && m > 0 && D > 0 && n >= 0;
 }
 
 int launch(const void* start, const void* end, const void* x, const void* w,
            void* out, int B, int n, int m, int D, int T, void* stream) {
     if (!valid(B, n, m, D, T)) return static_cast<int>(cudaErrorInvalidValue);
-    const Plan p = make_plan(B, n, m * D, x != nullptr ? m : 0, T);
+    const Plan p = make_plan(B, n, m, D, T, x != nullptr);
     if (p.rows * p.S > 0x7fffffff)
         return static_cast<int>(cudaErrorInvalidConfiguration);
     const auto* s = static_cast<const int32_t*>(start);
@@ -400,13 +456,15 @@ extern "C" int congestion_lp_launch(const void* start, const void* end,
 }
 
 // The launch shape an entry picks (with_x: the LP's), for reports: t_tile,
-// R, P, S (cluster), W (task groups), threads, chunk, shared bytes.
+// R, P, S (cluster), W (task groups), threads, chunk, shared bytes, column
+// tile width and column tiles.
 extern "C" int congestion_plan(int B, int n, int m, int D, int T, int with_x,
                                int* info) {
     if (!valid(B, n, m, D, T)) return static_cast<int>(cudaErrorInvalidValue);
-    const Plan p = make_plan(B, n, m * D, with_x ? m : 0, T);
-    const int vals[8] = {p.t_tile, p.R, p.P, p.S, p.W, p.W * p.unit_pad,
-                         p.chunk, static_cast<int>(p.smem)};
-    for (int i = 0; i < 8; ++i) info[i] = vals[i];
+    const Plan p = make_plan(B, n, m, D, T, with_x != 0);
+    const int vals[10] = {p.t_tile, p.R, p.P, p.S, p.W, p.W * p.unit_pad,
+                          p.chunk, static_cast<int>(p.smem), p.c_tile,
+                          p.c_tiles};
+    for (int i = 0; i < 10; ++i) info[i] = vals[i];
     return 0;
 }

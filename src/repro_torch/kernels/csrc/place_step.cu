@@ -58,8 +58,11 @@
 // warp + 8, ...; the 32 lanes of a warp walk the span's contiguous slot
 // range [s * D, (e + 1) * D) of the row; warp votes and shuffles finish the
 // feasibility test and the sums; a block-wide first-max argmax (ties to the
-// lowest j) picks the node.  The next step's task is loaded into registers
-// while the current step scores, so its device-memory latency is hidden.
+// lowest j) picks the node.  The next step's demand is copied into the
+// other half of a double-buffered D-long demand array with asynchronous
+// copies (cp.async) while the current step scores, so its device-memory
+// latency is hidden; every loop over the D dimensions is strided by the
+// block, so any D is taken.
 
 #include <cuda_runtime.h>
 #include <algorithm>
@@ -73,6 +76,19 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr double kEps = 1e-7;  // the engines' feasibility slack (EPS)
 constexpr unsigned kAll = 0xffffffffu;
+
+// 8-byte asynchronous copy global -> shared (cp.async); the issuing thread
+// waits for its own copies with copy_async_wait before it reads them
+__device__ __forceinline__ void copy_async8(double* dst, const double* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                     : "memory");
+}
 
 // f(row) for pool row j, which lives in shared memory when j < n_smem and
 // in device memory past that.  Each branch passes a pointer whose memory
@@ -95,6 +111,8 @@ __device__ __forceinline__ void on_row(double* rows_s, double* rows_g, int j,
 // cap); the two sums are taken in lane order and then by shuffles.  The
 // span starts at a slot boundary (k0 = s * D), so a lane's first dimension
 // is lane_d = lane % D and each stride of 32 moves it on by r32 = 32 % D.
+// This holds for any D: past 32, lane_d = lane and r32 = 32 < D, so one
+// subtraction keeps d in [0, D).
 // First fit keys every feasible node 0, so a warp stops at its first one.
 __device__ __forceinline__ void warp_first_max(
         double* rows_s, double* rows_g, int n_smem, int K, int D, int w,
@@ -212,8 +230,8 @@ place_step_kernel(double* __restrict__ pool,
     extern __shared__ double smem[];
     double* rows_s = smem;                                   // n_smem * K
     double* thr = smem + static_cast<int64_t>(n_smem) * K;   // D
-    double* dem = thr + D;                                   // D
-    double* dq = dem + D;                                    // D: dem / capx
+    double* dem_buf = thr + D;           // 2 x D: step l's demand at l & 1
+    double* dq = dem_buf + 2 * D;                            // D: dem / capx
     double* cx = dq + D;                                     // D: capx
     __shared__ double warp_key[kWarps];
     __shared__ int warp_j[kWarps];
@@ -237,11 +255,14 @@ place_step_kernel(double* __restrict__ pool,
     for (int l = len + tid; l < L; l += kThreads)
         j_rec[static_cast<int64_t>(l) * A + a] = -1;
 
-    // step 0's task, then each step prefetches the next one
-    double dm_next = 0.0, dn_next = 0.0;
+    // step 0's task, then each step prefetches the next one; a thread
+    // copies the same dimensions d = tid, tid + kThreads, ... at every step
+    // and is the only reader of its copies before the block barrier
+    double dn_next = 0.0;
     int s_next = 0, e_next = -1;
     if (len > 0) {
-        if (tid < D) dm_next = dem_seq[static_cast<int64_t>(a) * D + tid];
+        for (int d = tid; d < D; d += kThreads)
+            copy_async8(dem_buf + d, dem_seq + static_cast<int64_t>(a) * D + d);
         if (tid == 0) {
             s_next = s_seq[a];
             e_next = e_seq[a];
@@ -253,10 +274,11 @@ place_step_kernel(double* __restrict__ pool,
     __syncthreads();
 
     for (int l = 0; l < len; ++l) {
-        if (tid < D) {
-            dem[tid] = dm_next;
-            thr[tid] = dm_next - kEps;
-            dq[tid] = dm_next / cx[tid];
+        const double* dem = dem_buf + (l & 1) * D;
+        copy_async_wait();
+        for (int d = tid; d < D; d += kThreads) {
+            thr[d] = dem[d] - kEps;
+            dq[d] = dem[d] / cx[d];
         }
         if (tid == 0) {
             sh_s = s_next;
@@ -265,8 +287,12 @@ place_step_kernel(double* __restrict__ pool,
         }
         __syncthreads();
         if (l + 1 < len) {
+            // the other half held step l - 1's demand, whose last readers
+            // passed the barrier that ended that step
             const int64_t nx = static_cast<int64_t>(l + 1) * A + a;
-            if (tid < D) dm_next = dem_seq[nx * D + tid];
+            double* dem_nx = dem_buf + ((l + 1) & 1) * D;
+            for (int d = tid; d < D; d += kThreads)
+                copy_async8(dem_nx + d, dem_seq + nx * D + d);
             if (tid == 0) {
                 s_next = s_seq[nx];
                 e_next = e_seq[nx];
@@ -362,9 +388,11 @@ place_step_kernel(double* __restrict__ pool,
 // device memory through on_row), and so does the placed bitmap.  Eight warps
 // score and debit; a ninth, the scheduler, prepares the next attempt while
 // they do: it holds a window of 32 walk entries in its lanes, finds the next
-// unplaced one with one ballot, takes its demand and span (loaded a step
-// ahead for the entry that follows, so an attempt after an attempt finds
-// them in registers) and forms dem - EPS and dem / cap.  The scorers wait
+// unplaced one with one ballot, takes its demand and span (its span and its
+// first 32 dimensions loaded a step ahead for the entry that follows, so an
+// attempt after an attempt finds them in registers) and writes dem,
+// dem - EPS and dem / cap for d = lane, lane + 32, ... straight into the
+// slot it prepares, so any D is taken.  The scorers wait
 // for each other at a named barrier after scoring; every scorer warp picks
 // the node from the warps' results (first fit: one min-reduction of the
 // warps' first feasible nodes; similarity: a shuffle tree); one block
@@ -456,12 +484,13 @@ two_phase_kernel(const int32_t* __restrict__ walk,
         const int own_hi = bounds[3 * p + 1];
         const int hi = sequential ? bounds[3 * p + 2] : own_hi;
         __syncthreads();  // the last phase's readers are done with task[cur]
-        if (tid < D) cx[tid] = cap[p * D + tid];
+        for (int d = tid; d < D; d += kWalkThreads) cx[d] = cap[p * D + d];
         __syncthreads();
 
         // the scheduler's window: lane i holds walk[wbase + i] (-1 past
         // hi); the entries before wnext are consumed.  spec_* hold the
-        // demand and span of task spec_u, loaded a step ahead.
+        // span and the demand of dimension ``lane`` (lane < D) of task
+        // spec_u, loaded a step ahead.
         int wbase = lo, wnext = 0, wval = -1;
         int spec_u = -1, spec_s = 0, spec_e = 0;
         double spec_dn = 0.0, spec_dm = 0.0;
@@ -498,13 +527,33 @@ two_phase_kernel(const int32_t* __restrict__ walk,
             if (u >= 0) {
                 const bool hit = u == spec_u;
                 any_own |= pos < own_hi;
-                if (lane < D) {
-                    const double dm = hit ? spec_dm
-                                          : dem_all[static_cast<int64_t>(u) * D
-                                                    + lane];
-                    b[lane] = dm;
-                    b[D + lane] = dm - kEps;
-                    b[2 * D + lane] = dm / cx[lane];
+                const double* du = dem_all + static_cast<int64_t>(u) * D;
+                if (D <= 32) {  // one dimension per lane, as read ahead
+                    if (lane < D) {
+                        const double dm = hit ? spec_dm : du[lane];
+                        b[lane] = dm;
+                        b[D + lane] = dm - kEps;
+                        b[2 * D + lane] = dm / cx[lane];
+                    }
+                } else {  // four dimensions' loads in flight at a time
+                    for (int d0 = lane; d0 < D; d0 += 4 * 32) {
+                        double dm[4];
+#pragma unroll
+                        for (int r = 0; r < 4; ++r) {
+                            const int d = d0 + 32 * r;
+                            dm[r] = d >= D ? 0.0
+                                    : hit && d == lane ? spec_dm : du[d];
+                        }
+#pragma unroll
+                        for (int r = 0; r < 4; ++r) {
+                            const int d = d0 + 32 * r;
+                            if (d < D) {
+                                b[d] = dm[r];
+                                b[D + d] = dm[r] - kEps;
+                                b[2 * D + d] = dm[r] / cx[d];
+                            }
+                        }
+                    }
                 }
                 if (lane == 0) {
                     task[slot].s = hit ? spec_s : start[u];
@@ -703,14 +752,16 @@ extern "C" int place_step_launch(void* pool, const void* w_in,
                                  int rows, int purchase, int similarity,
                                  void* smem_rows, void* stream) {
     if (A <= 0) return 0;
-    if (D <= 0 || D > kThreads) return static_cast<int>(cudaErrorInvalidValue);
+    if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    // thr, the two demand buffers, dq and cx: D doubles each
+    const int64_t fixed = 5LL * D * 8;
     int64_t budget = 0;
     cudaError_t err = row_budget(reinterpret_cast<const void*>(
                                      place_step_kernel),
-                                 A, 4LL * D * 8, &budget);
+                                 A, fixed, &budget);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int n_smem = std::min(rows_in(budget, K, rows), n_cap);
-    const size_t dyn = (static_cast<size_t>(n_smem) * K + 4 * D) * 8;
+    const size_t dyn = static_cast<size_t>(n_smem) * K * 8 + fixed;
     err = cudaFuncSetAttribute(place_step_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(dyn));
@@ -743,7 +794,7 @@ extern "C" int two_phase_launch(const void* walk, const void* bounds,
                                 int rows, int similarity, int sequential,
                                 void* smem_rows, void* stream) {
     if (P <= 0) return 0;
-    if (D <= 0 || D > 32) return static_cast<int>(cudaErrorInvalidValue);
+    if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
     const int ctas = sequential ? 1 : P;
     const int64_t fixed = 7LL * D * 8 + 4LL * ((n + 31) / 32);
     int64_t budget = 0;

@@ -28,8 +28,9 @@ call instead of one per attempted task.
 For CUDA tensors each wrapper launches its kernel entry (built at first
 use), adds one to its own ``launches`` count and, when ``telemetry`` is a
 dict, stores there the pool rows each CTA kept in shared memory
-(``smem_rows``); for CPU tensors it returns the plain version.  It never
-falls back: a CUDA build or launch that fails raises.
+(``smem_rows``; rows past it are read and written in device memory); for
+CPU tensors it returns the plain version.  Both kernels take any D.  They
+never fall back: a CUDA build or launch that fails raises.
 """
 
 from __future__ import annotations
@@ -102,8 +103,6 @@ def sub_phase(pool: torch.Tensor, w: torch.Tensor, lens: torch.Tensor,
         raise ValueError("the placement stepper takes contiguous tensors")
     A, n_cap, K = pool.shape
     L, _, D = dem_seq.shape
-    if D > 256:
-        raise ValueError(f"the placement stepper takes D <= 256, got {D}")
     out = torch.empty(2 * A + L * A, dtype=torch.int32, device=pool.device)
     if A == 0:
         return out
@@ -127,11 +126,6 @@ def sub_phase(pool: torch.Tensor, w: torch.Tensor, lens: torch.Tensor,
 
 
 sub_phase.launches = 0
-
-
-# two_phase_walk keeps demands, thresholds and demand / cap of a task in one
-# warp's lanes
-MAX_WALK_D = 32
 
 
 def _check_walk(walk, bounds, cap, dem, start, end, dn, T: int, rows: int):
@@ -201,9 +195,6 @@ def _launch_walk(walk, bounds, cap, dem, start, end, dn, T, quantum,
         raise ValueError("the two_phase kernel takes contiguous tensors")
     P, D = cap.shape
     n = dem.shape[0]
-    if D > MAX_WALK_D:
-        raise ValueError(
-            f"the two_phase kernel takes D <= {MAX_WALK_D}, got {D}")
     out = torch.empty(3 * P + 2 * n, dtype=torch.int32, device=dem.device)
     K = T * D
     pool = torch.empty((1 if sequential else P, max(rows, 1), K),

@@ -153,12 +153,26 @@ def test_cpu_lp_applies_never_count_launches():
     assert tcong.congestion_many.launches == before
 
 
-def test_column_limit_is_the_kernels_own():
+def test_column_tile_is_the_kernels_own():
     src = (pathlib.Path(tcong.__file__).parent / "csrc" / "congestion.cu")
-    part = re.search(r"constexpr int kPartFloats = (\d+);", src.read_text())
-    assert int(part.group(1)) == tcong.MAX_COLUMNS
+    text = src.read_text()
+    part = re.search(r"constexpr int kPartFloats = (\d+);", text)
+    tile_t = re.search(r"constexpr int kMinTileT = (\d+);", text)
+    assert int(part.group(1)) == tcong.PART_FLOATS
+    assert int(tile_t.group(1)) == tcong._MIN_TILE_T
+    # one tile while the columns fit; past that, tiles of at most
+    # PART_FLOATS // min(T, 8) columns, as even as they can be
+    assert tcong.column_tiles(tcong.PART_FLOATS, 24) == (tcong.PART_FLOATS, 1)
+    for C, T in [(tcong.PART_FLOATS + 1, 1), (8280, 24), (9000, 4),
+                 (240000, 997)]:
+        width, tiles = tcong.column_tiles(C, T)
+        assert tiles > 1 and (tiles - 1) * width < C <= tiles * width
+        assert width * min(T, 8) <= tcong.PART_FLOATS
+    # CPU tensors take the plain version, past one tile as below it
+    C = tcong.PART_FLOATS + 1
     s = torch.zeros((1, 2), dtype=torch.int32)
-    w = torch.ones((1, 2, 1, tcong.MAX_COLUMNS + 1))
-    # CPU tensors take the plain version, which has no column limit
+    w = torch.ones((1, 2, 1, C))
     out = tcong.congestion_lp(s, s, w, torch.ones((1, 2, 1)), 3)
-    assert out.shape == (1, 3, 1, tcong.MAX_COLUMNS + 1)
+    assert out.shape == (1, 3, 1, C)
+    assert torch.equal(out[0, 0], torch.full((1, C), 2.0))
+    assert not out[0, 1:].any()

@@ -20,8 +20,10 @@ sweep against the sequential chain (the same arithmetic: mappings and costs
 equal, objectives within that gap); the float64 cumsum forward bit-equal
 over repeated applies and within 1e-12 of the dense form on the CPU; the
 constrained and GCT-like shapes (a lowered D of 14, T' about 995, pool rows
-of about 2000 doubles that spill) held as above, the shapes the kernels do
-not take refused with ``ValueError`` before any launch, and a constrained
+of about 2000 doubles that spill) held as above, and so the wide shapes
+(congestion columns past one tile, the steppers' D past 32 and 256, rows
+that spill; the congestion launch plan unchanged wherever the columns fit
+one tile, against ``tests/_torch_congestion_plan.py``), and a constrained
 fleet's plans on the card equal to the CPU's and clean under the oracle;
 the serving loop in the kernel configuration ticked to its end twice with
 bit-equal plans and reports (all but the wall-clock fields), every plan clean
@@ -60,6 +62,8 @@ import torch
 from repro_torch.kernels import congestion as cong
 from repro_torch.kernels import fit, ref
 from repro_torch.kernels import place_step as kstep
+from _torch_stepper_inputs import sub_phase_inputs as _sub_phase_inputs
+from _torch_stepper_inputs import walk_inputs as _walk_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -183,12 +187,65 @@ def test_congestion_lp_rejects_what_the_kernel_does_not_take(dev):
                            .transpose(1, 2), 4)
     with pytest.raises(ValueError, match="device"):
         cong.congestion_lp(s, s, w, x.cpu(), 4)
-    # wider than one CTA's partial sums can hold: refused before a launch
-    wide = torch.rand((1, 8, 9000), device=dev)
+
+
+# columns past one CTA's partial sums: K = 9000 for the TPU contract, the
+# LP's m * D = 8280 (30 types, 276 lowered dimensions) and 8200; T' of 1, 3,
+# 4, 24 and 40 (tiles of at least min(T', 8) slots)
+@pytest.mark.parametrize("G,n,T,K", [(1, 8, 4, 9000), (3, 300, 40, 9000),
+                                     (2, 50, 1, 8193)])
+def test_congestion_many_past_one_column_tile(dev, G, n, T, K):
+    g = torch.Generator().manual_seed(G + n + T + K)
+    s, e = _spans(g, (G, n), T)
+    w = torch.rand((G, n, K), generator=g)
+    s, e, w = s.to(dev), e.to(dev), w.to(dev)
     before = cong.congestion_many.launches
-    with pytest.raises(ValueError, match="at most 8192 columns, got K=9000"):
-        cong.congestion_many(s[:1], s[:1], wide, 4)
-    assert cong.congestion_many.launches == before
+    got = cong.congestion_many(s, e, w, T)
+    torch.cuda.synchronize()
+    assert cong.congestion_many.launches == before + 1
+    torch.testing.assert_close(got, ref.congestion_many_ref(s, e, w, T),
+                               rtol=TOL, atol=TOL)
+    plan = cong.launch_plan(G, n, 1, K, T, lp=False)
+    assert (plan["c_tile"], plan["c_tiles"]) == cong.column_tiles(K, T)
+    assert plan["c_tiles"] > 1 and plan["t_tile"] >= min(T, 8)
+
+
+@pytest.mark.parametrize("B,n,m,D,T", [
+    (2, 300, 30, 276, 24), (4, 1000, 30, 276, 24), (1, 40, 10, 820, 4),
+    (2, 64, 3, 5000, 3), (1, 33, 1, 9000, 1)])
+def test_congestion_lp_past_one_column_tile(dev, B, n, m, D, T):
+    g = torch.Generator().manual_seed(B + n + m + D + T)
+    s, e, w, x = _lp_inputs(g, B, n, m, D, T, dev)
+    before = cong.congestion_many.launches
+    got = cong.congestion_lp(s, e, w, x, T)
+    again = cong.congestion_lp(s, e, w, x, T)
+    torch.cuda.synchronize()
+    assert cong.congestion_many.launches == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bits each launch
+    torch.testing.assert_close(got, ref.congestion_lp_ref(s, e, w, x, T),
+                               rtol=TOL, atol=TOL)
+    plan = cong.launch_plan(B, n, m, D, T)
+    assert (plan["c_tile"], plan["c_tiles"]) == cong.column_tiles(m * D, T)
+    assert plan["c_tiles"] > 1 and plan["smem_bytes"] <= 227 * 1024
+
+
+# the shapes phases 3-12 of chip_smoke.py give the kernel, whose columns
+# fit one tile: the plan is the one the kernel picked before it tiled them
+@pytest.mark.parametrize("B,n,m,D,T,lp", [
+    (16, 1000, 10, 5, 24, True), (160, 1000, 1, 5, 24, False),
+    (1, 1000, 1, 5, 24, False), (16, 968, 10, 14, 24, True),
+    (16, 1000, 10, 2, 997, True), (64, 1000, 10, 2, 993, True),
+    (2, 3000, 3, 2, 33, True), (1, 8, 8, 1024, 4, True),
+    (5, 513, 1, 9, 33, False)])
+def test_launch_plan_is_unchanged_where_the_columns_fit(dev, B, n, m, D, T,
+                                                       lp):
+    from _torch_congestion_plan import one_tile_plan
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    got = cong.launch_plan(B, n, m, D, T, lp=lp)
+    want = one_tile_plan(B, n, m, D, T, lp, sms)
+    assert {k: got[k] for k in want} == want
+    assert (got["c_tile"], got["c_tiles"]) == (m * D, 1)
 
 
 @pytest.mark.parametrize("B,N,T,D", [(1, 1, 1, 1), (3, 33, 1, 2),
@@ -254,31 +311,6 @@ def test_fleet_path_launches_both_batched_kernels(dev):
                         device="cpu").evaluate(fleet)
     for a, b in zip(res.entries, plain.entries):
         assert a["lb"] == pytest.approx(b["lb"], rel=1e-4)
-
-
-def _sub_phase_inputs(g, A, L, T, D, dem_scale, w0_max, purchase):
-    """A random sub-phase: A lanes of up to L start-sorted attempts over T
-    slots, the last dimension padded (+inf capacity, zero demand)."""
-    f64 = torch.float64
-    cap = 0.5 + torch.rand((A, D), generator=g, dtype=f64)
-    cap[:, -1] = 1.0
-    capx = cap.clone()
-    capx[:, -1] = torch.inf
-    dem = torch.rand((L, A, D), generator=g, dtype=f64) * dem_scale
-    dem[..., -1] = 0.0
-    s = torch.sort(torch.randint(0, T, (L, A), generator=g), dim=0).values
-    e = torch.clamp(s + torch.randint(0, T // 2 + 1, (L, A), generator=g),
-                    max=T - 1)
-    dn = 0.5 + torch.rand((L, A), generator=g, dtype=f64)
-    lens = torch.randint(0, L + 1, (A,), generator=g).to(torch.int32)
-    w = torch.randint(0, w0_max + 1, (A,), generator=g).to(torch.int32)
-    n_cap = w0_max + (L if purchase else 0)
-    pool = cap.repeat(1, T)[:, None, :].expand(A, n_cap, T * D).clone()
-    if not purchase:  # open rows already partly used
-        pool -= torch.rand(pool.shape, generator=g, dtype=f64) * 0.3
-    rows = n_cap if purchase else w0_max
-    return [pool, w, lens, dem, s.to(torch.int32), e.to(torch.int32), dn,
-            capx, cap], rows
 
 
 @pytest.mark.parametrize("similarity", [False, True])
@@ -360,38 +392,6 @@ def test_compiled_placement_has_no_pool_cap_on_the_card(dev, monkeypatch):
             assert np.array_equal(a.node_type, b.node_type)
 
 
-def _walk_inputs(rng, n, P, D, T, dem_scale, filling, unfit):
-    """A random single-instance walk (the ``two_phase`` kernel's inputs):
-    tasks mapped to P phases, own parts in start order, cross-fill parts of
-    the later phases' tasks (filling only).  With ``unfit`` one task's
-    demand exceeds its phase's capacity.  Returns (args, rank of each task's
-    phase, rows)."""
-    cap = 0.5 + rng.random((P, D))
-    dem = rng.random((n, D)) * dem_scale * cap.min()
-    start = rng.integers(0, T, n)
-    end = np.minimum(start + rng.integers(0, T // 2 + 1, n), T - 1)
-    phase = rng.integers(0, P, n)
-    if unfit:
-        u = int(rng.integers(0, n))
-        dem[u] = cap[phase[u]] * 1.5
-    parts = []
-    for p in range(P):
-        mine = np.flatnonzero(phase == p)
-        parts.append(mine[np.lexsort((mine, start[mine]))])
-        later = np.flatnonzero(phase > p) if filling else np.zeros(0, int)
-        parts.append(rng.permutation(later))
-    ends = np.cumsum([0] + [len(x) for x in parts])
-    bounds = np.stack([ends[0:-1:2], ends[1::2], ends[2::2]], axis=1)
-    i32, f64 = torch.int32, torch.float64
-    args = [torch.as_tensor(np.concatenate(parts), dtype=i32),
-            torch.as_tensor(bounds, dtype=i32), torch.as_tensor(cap, dtype=f64),
-            torch.as_tensor(dem, dtype=f64), torch.as_tensor(start, dtype=i32),
-            torch.as_tensor(end, dtype=i32),
-            torch.as_tensor(0.5 + rng.random(n), dtype=f64)]
-    rows = max(int((phase == p).sum()) for p in range(P))
-    return args, phase, rows
-
-
 @pytest.mark.parametrize("similarity", [False, True])
 @pytest.mark.parametrize("filling", [False, True])
 @pytest.mark.parametrize("n,P,D,T,dem_scale,unfit", [
@@ -400,7 +400,11 @@ def _walk_inputs(rng, n, P, D, T, dem_scale, filling, unfit):
     (1000, 10, 5, 23, 0.3, False),   # Table I's width
     (300, 2, 8, 200, 0.9, False),    # rows of 12.8 KB: most spill
     (120, 3, 3, 12, 0.3, True),      # a task no node of its type holds
-    (60, 5, 32, 4, 0.2, False),      # the widest D the kernel takes
+    (60, 5, 32, 4, 0.2, False),      # one dimension per scheduler lane
+    (200, 4, 33, 12, 0.3, False),    # past one warp's lanes
+    (300, 5, 64, 24, 0.3, False),
+    (400, 10, 276, 24, 0.3, False),  # rows of 53 KB: most spill
+    (150, 3, 276, 24, 0.3, True),
 ])
 def test_two_phase_kernel_matches_plain(dev, similarity, filling, n, P, D, T,
                                         dem_scale, unfit):
@@ -417,7 +421,7 @@ def test_two_phase_kernel_matches_plain(dev, similarity, filling, n, P, D, T,
     assert torch.equal(got.cpu(), want)
     w, bad, _, placed_in, _ = kstep.split_walk(want.numpy(), P, n)
     assert (bad >= 0).any() == unfit
-    if T == 200:
+    if T == 200 or D == 276:
         assert int(w.max()) > info["smem_rows"]  # the spill path ran
     if filling and n >= 200:
         # cross-fill placed tasks of later phases, whose own entries the
@@ -571,16 +575,17 @@ def test_congestion_lp_at_the_slice_shapes(dev, B, n, m, D, T):
                                rtol=TOL, atol=TOL)
 
 
-def test_congestion_refuses_wide_shapes_before_a_launch(dev):
+def test_congestion_takes_both_sides_of_one_tile_in_one_launch(dev):
     s = torch.zeros((1, 8), dtype=torch.int32, device=dev)
     before = cong.congestion_many.launches
-    with pytest.raises(ValueError, match=r"m\*D=8200"):
-        cong.congestion_lp(s, s, torch.rand((1, 8, 10, 820), device=dev),
-                           torch.rand((1, 8, 10), device=dev), 4)
-    cong.congestion_lp(s, s, torch.rand((1, 8, 8, 1024), device=dev),
-                       torch.rand((1, 8, 8), device=dev), 4)  # 8192 runs
+    for m, D in ((10, 820), (8, 1024)):  # 8200 columns: two tiles; 8192: one
+        w = torch.rand((1, 8, m, D), device=dev)
+        x = torch.rand((1, 8, m), device=dev)
+        torch.testing.assert_close(cong.congestion_lp(s, s, w, x, 4),
+                                   ref.congestion_lp_ref(s, s, w, x, 4),
+                                   rtol=TOL, atol=TOL)
     torch.cuda.synchronize()
-    assert cong.congestion_many.launches == before + 1
+    assert cong.congestion_many.launches == before + 2
 
 
 @pytest.mark.parametrize("similarity", [False, True])
@@ -603,14 +608,32 @@ def test_place_step_spills_gct_like_rows(dev, similarity, A, L):
     assert int(got[:A].max()) > info["smem_rows"]  # the spill path ran
 
 
-def test_place_step_refuses_more_than_256_dimensions(dev):
-    g = torch.Generator().manual_seed(3)
-    args, rows = _sub_phase_inputs(g, 2, 3, 2, 257, 0.001, 0, True)
+@pytest.mark.parametrize("similarity", [False, True])
+@pytest.mark.parametrize("A,L,T,D,dem_scale,w0_max,purchase", [
+    (2, 3, 2, 257, 0.001, 0, True),
+    (16, 40, 24, 257, 0.3, 0, True),     # past one dimension per thread
+    (8, 30, 24, 600, 0.2, 0, True),      # rows of 115 KB: most spill
+    (16, 40, 12, 300, 0.2, 20, False),   # cross-fill into open rows
+    (120, 60, 24, 276, 0.3, 0, True),    # phase 10c's type-parallel width
+])
+def test_place_step_takes_any_width(dev, similarity, A, L, T, D, dem_scale,
+                                    w0_max, purchase):
+    g = torch.Generator().manual_seed(A * 31 + L + D)
+    args, rows = _sub_phase_inputs(g, A, L, T, D, dem_scale, w0_max,
+                                   purchase)
+    want_args = [t.to(dev) for t in args]
+    got_args = [t.to(dev) for t in args]
+    want = ref.sub_phase_ref(*want_args, 1e9, purchase, similarity)
     before = kstep.sub_phase.launches
-    with pytest.raises(ValueError, match="D <= 256, got 257"):
-        kstep.sub_phase(*[t.to(dev) for t in args], 1e9, True, False,
-                        rows=rows)
-    assert kstep.sub_phase.launches == before
+    info = {}
+    got = kstep.sub_phase(*got_args, 1e9, purchase, similarity, rows=rows,
+                          telemetry=info)
+    torch.cuda.synchronize()
+    assert kstep.sub_phase.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got_args[0], want_args[0])
+    if D >= 600:
+        assert int(got[:A].max()) > info["smem_rows"]  # the spill path ran
 
 
 def test_constrained_fleet_on_the_card(dev):

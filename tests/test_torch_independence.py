@@ -19,6 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "zstandard")
 MODULES = sorted(PKG.rglob("*.py"))
 CARD_SIDE = [REPO / "chip_smoke.py", REPO / "tests" / "_torch_lm_card.py",
              REPO / "tests" / "_torch_train_card.py",
+             REPO / "tests" / "_torch_congestion_plan.py",
+             REPO / "tests" / "_torch_stepper_inputs.py",
              *sorted((REPO / "scripts").glob("*.py"))]
 
 
@@ -136,8 +138,8 @@ print("ok", len({mods!r}))
 
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
-    from repro_torch.core import (FleetEngine, place_many, rightsize,
-                                  solve_lp_many, two_phase)
+    from repro_torch.core import (FleetEngine, evaluate_many, place_many,
+                                  rightsize, solve_lp_many, two_phase)
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
     from repro_torch import convert
@@ -164,6 +166,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     mapping = [0] * p.n
     calls = [
         lambda: FleetEngine(),
+        lambda: evaluate_many([p]),
         lambda: solve_lp_many([p], iters=2),
         lambda: place_many([p], [mapping]),
         lambda: two_phase(p, mapping),
