@@ -270,7 +270,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    is 64 steps) and at S = 300 with a tenth of the decays exactly 0 (half of
    them lw = -inf); the backward's scratch bytes
    (``torch.cuda.max_memory_allocated`` around one call at S = 2048); the
-   scan at B = 4, W = 4096, bit-equal; then each timed (kernel, plain loop,
+   scan pair bit-equal at (B, S, W) = (1, 1, 1), (2, 7, 300), (1, 65, 33),
+   (3, 300, 4098) and (4, 4100, 4096), then at B = 4, W = 4096 and the
+   path's lengths, each launch plan printed and held to the plan rule's
+   transcription (``tests/_torch_scan_tiles.py``), the path's in one wave
+   on the card's SMs; then each timed (kernel, plain loop,
    bound: the WKV's operations at the TF32 tensor-core rate over the 3-pass
    split, which its kernels run, beside the same count at the CUDA cores'
    float32 rate, ``bound_ms_f32_rate``, the bound of the earlier serial
@@ -3796,6 +3800,10 @@ REC_FWD_SEQ = LM_PROMPT          # 16a's prefill: the forwards' checks
 REC_BWD_SEQ = TRAIN_SEQ          # 16c's step: the backwards' checks
 WKV_SHAPE = (4, 64, 64)          # B, H, N of rwkv6-7b's layer at batch 4
 SCAN_SHAPE = (4, 4096)           # B, W of recurrentgemma-9b's layer
+# (B, S, W) the scan pair is also held bit-equal at: W not a multiple of 4
+# or 32, S not a multiple of a time tile, B * W below one block
+SCAN_RAGGED = ((1, 1, 1), (2, 7, 300), (1, 65, 33), (3, 300, 4098),
+               (4, 4100, 4096))
 # float32 outputs against the plain loop: sums in another order and fused
 # multiply-adds, relative to the output's max |value| (13c/14b's bound);
 # bfloat16 outputs: the same, plus two bfloat16 roundings of the value
@@ -3865,6 +3873,23 @@ def wkv_chunked_ops(B, S, H, N, backward: bool) -> float:
                + 3 * (2 * L * N * N)                      # S_in, dS_out
                + 4 * N * 4 * 120 + 6 * L * N)             # pairs, glw
     return float(B * H * nc * per)
+
+
+def checked_scan_plan(torch, kscan, B, S, W, backward) -> dict:
+    """The launch plan the built scan kernel picks, held to the plan rule's
+    transcription (``tests/_torch_scan_tiles.py``) on this card's SMs."""
+    if str(HERE / "tests") not in sys.path:
+        sys.path.append(str(HERE / "tests"))
+    from _torch_scan_tiles import plan as scan_plan
+
+    plan = kscan.launch_plan(B, W, backward=backward)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = scan_plan(B, W, backward, sms)
+    if {k: plan[k] for k in want} != want or plan["resident"] < 1:
+        raise AssertionError(f"scan launch plan at B={B} S={S} W={W} "
+                             f"backward={backward}: {plan}, the rule gives "
+                             f"{want}")
+    return plan
 
 
 def recurrent_kernel_checks(torch, dev) -> dict:
@@ -3971,15 +3996,41 @@ def recurrent_kernel_checks(torch, dev) -> dict:
         if name == "wkv_backward":
             out[name].update(scratch)
         del ins, gy, gs, fn, plain
-    # the linear scan (float32 gates): bit-equal to the plain loop
+    # the linear scan (float32 gates): bit-equal to the plain loops at the
+    # ragged shapes, then at the path's (timed below); each launch plan
+    # printed and held to the plan rule's transcription
+    for B_, S_, W_ in SCAN_RAGGED:
+        g = torch.Generator(device=dev).manual_seed(S_ + W_)
+        a = torch.rand((B_, S_, W_), generator=g, device=dev)
+        b = torch.randn((B_, S_, W_), generator=g, device=dev)
+        gh = torch.randn((B_, S_, W_), generator=g, device=dev)
+        h = kscan.scan_forward(a, b)
+        hp = ref.linear_scan_ref(a, b)
+        ga, gb = kscan.scan_backward(a, hp, gh)
+        pa, pb = ref.linear_scan_backward_ref(a, hp, gh)
+        if not (torch.equal(h, hp) and torch.equal(ga, pa)
+                and torch.equal(gb, pb)):
+            raise AssertionError(f"linear scan at B={B_} S={S_} W={W_}: "
+                                 f"kernel and plain loop differ")
+        log(f"recurrent: linear_scan and linear_scan_backward B={B_} S={S_} "
+            f"W={W_}: bit-equal to the plain loops; plans "
+            f"{checked_scan_plan(torch, kscan, B_, S_, W_, False)}, "
+            f"{checked_scan_plan(torch, kscan, B_, S_, W_, True)}")
+        del a, b, gh, h, hp, ga, gb, pa, pb
     Bs, W = SCAN_SHAPE
     g = torch.Generator(device=dev).manual_seed(5)
     for name, S in (("linear_scan", Sf), ("linear_scan_backward", Sb)):
+        backward = name == "linear_scan_backward"
+        plan = checked_scan_plan(torch, kscan, Bs, S, W, backward)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        if plan["blocks"] > plan["resident"] * sms:
+            raise AssertionError(f"{name}: {plan['blocks']} blocks do not fit "
+                                 f"{sms} SMs in one wave: {plan}")
         a = torch.rand((Bs, S, W), generator=g, device=dev)
         b = torch.randn((Bs, S, W), generator=g, device=dev)
         h = kscan.scan_forward(a, b)
         n = Bs * S * W
-        if name == "linear_scan":
+        if not backward:
             if not torch.equal(h, ref.linear_scan_ref(a, b)):
                 raise AssertionError("linear scan: kernel and plain loop "
                                      "differ")
@@ -4006,7 +4057,7 @@ def recurrent_kernel_checks(torch, dev) -> dict:
             "ms": device_ms(torch, fn, reps=20, warmup=3),
             "plain_ms": device_ms(torch, plain, reps=2, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "call_ms": cuda_ms(torch, fn, reps=20, warmup=2)}
+            "call_ms": cuda_ms(torch, fn, reps=20, warmup=2), "plan": plan}
         del a, b, h, fn, plain
     for name, info in out.items():
         log(timing_line(name, info))
@@ -4706,7 +4757,8 @@ def main(argv=None) -> int:
                                               "phase12_ms",
                                               "phase15_launches",
                                               "train_launches",
-                                              "max_rel_err", "shape")
+                                              "max_rel_err", "shape",
+                                              "plan")
             if key in kinfo[name]}}
         for name in SOURCES]}
     report["kernels"] = kinfo

@@ -70,6 +70,7 @@ SIGNATURES = {
     "scan": {
         "linear_scan_launch": (_C, _C, _C, _I, _I, _I, _C),
         "linear_scan_backward_launch": (_C,) * 5 + (_I,) * 3 + (_C,),
+        "linear_scan_plan": (_I,) * 3 + (ctypes.POINTER(_I),),
     },
 }
 

@@ -16,6 +16,9 @@ none (nor does the reference's ``associative_scan``).
 The launch wrappers ``scan_forward`` and ``scan_backward`` add one to their
 ``launches`` count per launch.  The kernel rounds the multiply and the add
 apart, as the plain loop does, so the two agree bit for bit on the card.
+Each block of the kernel owns a few consecutive channels of one batch row
+and streams time tiles through a ring in shared memory (``csrc/scan.cu``
+says how); ``launch_plan`` reports the launch shape it picks.
 Replaces no Pallas kernel: the reference compiles this scan as a
 ``lax.associative_scan`` (``repro.models.rglru.rglru_scan``).
 """
@@ -28,7 +31,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from . import ref
 
-__all__ = ["linear_scan", "scan_forward", "scan_backward"]
+__all__ = ["linear_scan", "scan_forward", "scan_backward", "launch_plan"]
 
 
 def _check(*tensors):
@@ -94,6 +97,27 @@ def scan_backward(a, h, gh):
 
 
 scan_backward.launches = 0
+
+
+def launch_plan(B: int, W: int, backward: bool = False) -> dict:
+    """The launch shape the kernel picks for B batch rows of W channels on
+    this card, with 16-byte-aligned tensors (the sequence length does not
+    change it: rows past the end are masked): blocks, channels a block,
+    steps a tile, ring stages, shared bytes a block, threads a block,
+    floats a copy (4, or 1 where W is not a multiple of 4) and the blocks
+    an SM holds at once by the occupancy calculator.  Needs the built
+    kernel and a card."""
+    import ctypes
+
+    from . import build
+
+    info = (ctypes.c_int * 8)()
+    err = build.load("scan").linear_scan_plan(B, W, int(backward), info)
+    if err != 0:
+        raise ValueError(f"no launch shape for B={B} W={W}")
+    keys = ("blocks", "channels", "steps", "stages", "smem_bytes", "threads",
+            "vec", "resident")
+    return dict(zip(keys, info))
 
 
 # --- the operators -----------------------------------------------------------

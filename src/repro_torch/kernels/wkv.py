@@ -24,15 +24,17 @@ from chunk to chunk through a ring of 2 B H N^2 float32 and keeps 1 + B H nc
 int32 flags (8.4 MB and 67 kB at B = 4, S = 4100, H = N = 64); the backward
 keeps the states entering every chunk and the final one, B H (nc + 1) N^2
 float32, their gradients, B H nc N^2 float32, the chunk decays, B H nc N
-float32, and float64 bonus partials, B H nc N (279 MB at S = 2048).  No
-per-step state reaches device memory, and the dry-run's fake implementation
-does not count this scratch.
+float32, and float64 bonus partials, B H nc N (279 MB at S = 2048;
+``backward_scratch``).  No per-step state reaches device memory.  The
+fake implementation returns the outputs only; the dry-run counts the
+backward's scratch through ``backward_scratch_bytes`` (in
+``launch.hlo_cost.workspace_registry``), the sum the wrapper allocates by.
 
 Both are ``torch.library`` operators (``repro_torch::wkv``,
 ``repro_torch::wkv_backward``): the CPU implementation is the plain version
 (``ref.wkv_ref``, ``ref.wkv_backward_ref``), the CUDA one the kernels, and
 the fake one gives shapes only, so a ``meta`` trace (the dry-run) sees one
-operator a layer; the dry-run does not count the kernels' scratch.  ``wkv``
+operator a layer, and the backward's scratch is counted beside it.  ``wkv``
 carries an autograd rule whose backward is ``wkv_backward``.  Each operator
 has a FLOP formula equal to what ``launch.hlo_cost.OpCounter`` counts for
 the plain loop's products on the same shapes (2 B S H N^2 forward, 4 B S H
@@ -47,6 +49,8 @@ loop as a ``lax.scan`` (``repro.models.rwkv.timemix_scan``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import Tensor
@@ -133,6 +137,23 @@ def wkv_forward(r, k, v, lw, u):
 wkv_forward.launches = 0
 
 
+def backward_scratch(B: int, S: int, H: int, N: int) -> dict:
+    """The backward kernels' scratch, ``{name: (shape, dtype)}``, with
+    nc = ceil(S / L) chunks: the states entering every chunk and the final
+    one, their gradients, the chunk decays and the float64 bonus partials;
+    B H (2 nc + 1) N^2 * 4 + 12 B H nc N bytes in all."""
+    nc = -(-S // ref.WKV_CHUNK)
+    return {"states": ((B * H, nc + 1, N, N), torch.float32),
+            "dstates": ((B * H, nc, N, N), torch.float32),
+            "dec": ((B * H, nc, N), torch.float32),
+            "gu_part": ((B, H, nc, N), torch.float64)}
+
+
+def backward_scratch_bytes(B: int, S: int, H: int, N: int) -> int:
+    return sum(math.prod(shape) * dtype.itemsize
+               for shape, dtype in backward_scratch(B, S, H, N).values())
+
+
 def wkv_backward_launch(r, k, v, lw, u, gy, gs):
     """(gr, gk, gv, glw, gu) by the kernels on CUDA tensors, by
     ``ref.wkv_backward_ref`` on CPU tensors."""
@@ -148,12 +169,9 @@ def wkv_backward_launch(r, k, v, lw, u, gy, gs):
     lib, stream = _cuda_args(r, k, v, lw, u, gy, gs)
     r, k, v, lw, u, gy, gs = _aligned(r, k, v, lw, u, gy, gs)
     dev = r.device
-    nc = -(-S // ref.WKV_CHUNK)
-    f32 = dict(dtype=torch.float32, device=dev)
-    states = torch.empty((B * H, nc + 1, N, N), **f32)
-    dstates = torch.empty((B * H, nc, N, N), **f32)
-    dec = torch.empty((B * H, nc, N), **f32)
-    gu_part = torch.empty((B, H, nc, N), dtype=torch.float64, device=dev)
+    states, dstates, dec, gu_part = (
+        torch.empty(shape, dtype=dtype, device=dev)
+        for shape, dtype in backward_scratch(B, S, H, N).values())
     gr, gk, gv = (torch.empty((B, S, H, N), dtype=r.dtype, device=dev)
                   for _ in range(3))
     glw = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)

@@ -487,8 +487,12 @@ def run_step(cfg: ModelConfig, mode: str, seq: int, batch: int, mesh,
     ``cfg`` at ``batch`` x ``seq`` on ``mesh`` and return rank 0's
     accounting: the record's size, FLOP, traffic and collective keys and
     ``lower_s``; ``reshards`` (the ops ``ReshardOnFailure`` gathered, by
-    name) and ``logits_bytes`` (rank 0's bytes of a serving step's
-    logits).  With ``mesh`` None the step runs on plain meta tensors: one
+    name), ``logits_bytes`` (rank 0's bytes of a serving step's
+    logits), ``workspace_bytes`` (the largest scratch of one registered
+    op, ``hlo_cost.workspace_registry``) and ``workspace_temp_bytes`` (the
+    temp that the busiest such op alone would give: what is live there with
+    its scratch, less the arguments; the record's temp holds it).  With
+    ``mesh`` None the step runs on plain meta tensors: one
     device holding everything, without DTensor."""
     tc = train_cfg or TrainConfig()
     _cfg, model, state, b = _inputs(cfg, mode, seq, batch, tc)
@@ -545,11 +549,14 @@ def run_step(cfg: ModelConfig, mode: str, seq: int, batch: int, mesh,
         "alias_size_in_bytes": alias,
         "reshards": dict(fallback.reshards),
         "logits_bytes": _local_bytes(out[0]) if mode != "train" else 0,
+        "workspace_bytes": counter.workspace_bytes,
+        "workspace_temp_bytes": max(
+            counter.workspace_peak_bytes - arg_bytes, 0),
     }
 
 
 def _cell(arch, shape_name, multi_pod, train_cfg, hints, device):
-    """(record, reshards) of one cell."""
+    """(record, ``run_step``'s accounting) of one cell."""
     resolve_device(device)
     shape = SHAPES[shape_name]
     cfg = get_config(arch)
@@ -585,7 +592,7 @@ def _cell(arch, shape_name, multi_pod, train_cfg, hints, device):
         "temp_size_in_bytes": acc["temp_size_in_bytes"],
         "generated_code_size_in_bytes": None,
         "alias_size_in_bytes": acc["alias_size_in_bytes"],
-    }, acc["reshards"]
+    }, acc
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -634,15 +641,17 @@ def main(argv=None):
         for multi_pod in meshes:
             tag = f"{arch}__{shape_name}__{'2x16x16' if multi_pod else '16x16'}"
             try:
-                res, reshards = _cell(arch, shape_name, multi_pod, None,
-                                      not args.no_hints, args.device)
+                res, acc = _cell(arch, shape_name, multi_pod, None,
+                                 not args.no_hints, args.device)
                 path = os.path.join(args.out, tag + ".json")
                 with open(path, "w") as f:
                     json.dump(res, f, indent=1)
                 print(f"OK   {tag}: trace={res['lower_s']}s "
                       f"flops/dev={res['flops']:.3e} "
                       f"coll/dev={sum(res['collective_bytes'].values()):.3e}B "
-                      f"reshards={sum(reshards.values())}",
+                      f"reshards={sum(acc['reshards'].values())} "
+                      f"workspace={acc['workspace_bytes']}B "
+                      f"workspace_temp={acc['workspace_temp_bytes']}B",
                       flush=True)
             except Exception as e:
                 failures += 1

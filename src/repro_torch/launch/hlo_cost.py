@@ -18,7 +18,11 @@ up the reference's roofline inputs:
     -> reduce-scatter, ``all_to_all_single`` -> all-to-all, point-to-point
     sends and receives -> collective-permute;
   * the bytes of the storages alive at each op and their peak, when the
-    caller registers the call's arguments (``track``).
+    caller registers the call's arguments (``track``); an operator whose
+    kernels allocate scratch of their own inside the call (which its fake
+    implementation cannot show) has a formula for those bytes in
+    ``workspace_registry``, and the peak then holds them beside what is
+    live while the op runs.
 
 **Per device.**  On a ``DTensor`` op the mode steps aside (it returns
 ``NotImplemented``), so DTensor runs its sharding propagation and issues
@@ -45,7 +49,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["analyze", "HloCost", "OpCounter"]
+from ..kernels import wkv
+
+__all__ = ["analyze", "HloCost", "OpCounter", "workspace_registry"]
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
@@ -54,6 +60,15 @@ _COLLECTIVE_NS = ("_c10d_functional", "c10d_functional", "c10d",
 # ops that return their input (or a view of it) and move no bytes
 _NO_TRAFFIC = {"wait_tensor", "detach", "alias", "lift_fresh",
                "_local_scalar_dense"}
+
+
+# scratch bytes an operator's kernels allocate inside one call, beyond its
+# outputs, as a function of the call's arguments; by op overload packet.  The
+# formula is the one the operator's wrapper allocates by.
+workspace_registry: dict = {
+    torch.ops.repro_torch.wkv_backward:
+        lambda r, *args, **kwargs: wkv.backward_scratch_bytes(*r.shape),
+}
 
 
 def _collective_kind(name: str) -> str | None:
@@ -96,7 +111,10 @@ class OpCounter(TorchDispatchMode):
     device type (the dry-run's local shards are ``meta`` tensors; the
     small host tensors DTensor's sharding propagation makes are then not
     counted).  ``live_bytes`` and ``peak_bytes`` follow the storages the
-    counted ops create and the ones ``track`` registers."""
+    counted ops create and the ones ``track`` registers; at an op with a
+    registered workspace, ``peak_bytes`` also holds the live bytes with its
+    outputs plus that scratch; ``workspace_bytes`` is the largest such
+    scratch seen and ``workspace_peak_bytes`` the largest such sum."""
 
     def __init__(self, device: str | None = None):
         super().__init__()
@@ -107,6 +125,8 @@ class OpCounter(TorchDispatchMode):
         self.coll_count = 0
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.workspace_bytes = 0
+        self.workspace_peak_bytes = 0
         self._seen: dict[int, weakref.ref] = {}
 
     # -- memory ------------------------------------------------------------
@@ -176,6 +196,12 @@ class OpCounter(TorchDispatchMode):
             self.traffic += sum(_nbytes(t) for t in ins + outs)
         for t in outs:
             self._add(t)
+        if packet in workspace_registry:
+            scratch = int(workspace_registry[packet](*args, **kwargs))
+            self.workspace_bytes = max(self.workspace_bytes, scratch)
+            self.workspace_peak_bytes = max(self.workspace_peak_bytes,
+                                            self.live_bytes + scratch)
+            self.peak_bytes = max(self.peak_bytes, self.workspace_peak_bytes)
         return out
 
 

@@ -50,6 +50,8 @@ and backward (the chunked kernels, at lengths around and between their
 output's max |value| of the plain loops
 (bfloat16 outputs within two bfloat16 roundings more), the linear scan
 bit-equal to its plain loops (both round the multiply and the add apart),
+the launch plan equal to the plan rule's transcription
+(``tests/_torch_scan_tiles.py``) and the path's blocks resident at once,
 the model's decay gradients through the chunked backward within 1e-4 of
 each one's max |value| of the CPU's where half the decays underflow, and
 the recurrent smoke models launching them.
@@ -991,7 +993,11 @@ def test_wkv_refuses_what_it_does_not_take(dev):
         kwkv.wkv_forward(x, x, x, strided, torch.zeros((1, 16), device=dev))
 
 
-@pytest.mark.parametrize("B,S,W", [(1, 1, 1), (2, 7, 300), (4, 513, 4096)])
+# W not a multiple of 4 or 32, S not a multiple of a time tile, B * W below
+# one block, and the path's shape
+@pytest.mark.parametrize("B,S,W", [(1, 1, 1), (2, 7, 300), (1, 65, 33),
+                                   (3, 300, 4098), (4, 513, 4096),
+                                   (4, 4100, 4096)])
 def test_linear_scan_is_bit_equal_to_plain(dev, B, S, W):
     from repro_torch.kernels import scan as kscan
 
@@ -1004,6 +1010,45 @@ def test_linear_scan_is_bit_equal_to_plain(dev, B, S, W):
     got = kscan.scan_backward(a, h, gh)
     want = ref.linear_scan_backward_ref(a, h, gh)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_linear_scan_on_unaligned_views_is_bit_equal(dev):
+    """Tensors that start 4 bytes past a 16-byte boundary take the kernels'
+    4-byte copies."""
+    from repro_torch.kernels import scan as kscan
+
+    B, S, W = 2, 70, 36
+    g = torch.Generator(device=dev).manual_seed(1)
+    a, b, gh = (torch.rand(B * S * W + 1, generator=g, device=dev)[1:].view(
+        B, S, W) for _ in range(3))
+    assert a.data_ptr() % 16 != 0
+    h = kscan.scan_forward(a, b)
+    assert torch.equal(h, ref.linear_scan_ref(a, b))
+    got = kscan.scan_backward(a, h, gh)
+    want = ref.linear_scan_backward_ref(a, h, gh)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("B,S,W", [(1, 1, 1), (2, 7, 300), (1, 65, 33),
+                                   (3, 300, 4098), (1, 4100, 4096),
+                                   (4, 2048, 4096), (4, 4100, 4096),
+                                   (2, 12, 64)])
+def test_linear_scan_plan_is_the_rule(dev, B, S, W, backward):
+    """The built kernel's launch plan equals the plan rule's transcription
+    (``tests/_torch_scan_tiles.py``, which the CPU tests walk), and the
+    card holds every block of the path's shapes at once."""
+    from _torch_scan_tiles import plan as scan_plan
+
+    from repro_torch.kernels import scan as kscan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    got = kscan.launch_plan(B, W, backward=backward)
+    want = scan_plan(B, W, backward, sms)
+    assert {k: got[k] for k in want} == want
+    assert got["resident"] >= 1
+    if (B, W) == (4, 4096):
+        assert got["blocks"] <= got["resident"] * sms, got
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b"])

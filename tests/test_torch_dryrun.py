@@ -295,3 +295,30 @@ def test_new_tensors_keep_values_on_one_device():
                              (x, [4, 6]), {})
         assert z.shape == (4, 6) and torch.equal(z.to_local(),
                                                  torch.zeros(4, 6))
+
+
+def test_temp_holds_the_wkv_backward_scratch(port):
+    """The WKV backward's kernels allocate scratch inside the call that its
+    fake implementation cannot show; the count holds it
+    (``hlo_cost.workspace_registry``).  rwkv6-7b's train record holds the
+    scratch of one layer's call on its local shard (with hints the batch
+    split 16 ways, without them whole; the smoke config's 4 heads too few
+    for the 16-way model axis); no other cell runs a registered op, so
+    their counts are as before."""
+    from repro_torch.kernels import wkv
+
+    acc, records, _one = port
+    cfg = smoke_config("rwkv6-7b")
+    H, N = cfg.num_heads, cfg.head_dim
+    scratch = wkv.backward_scratch_bytes(BATCH // 16, SEQ, H, N)
+    assert acc["rwkv6-7b", "train", True]["workspace_bytes"] == scratch
+    assert acc["rwkv6-7b", "train", False]["workspace_bytes"] == \
+        wkv.backward_scratch_bytes(BATCH, SEQ, H, N)
+    assert records["rwkv6-7b", "train"]["temp_size_in_bytes"] >= scratch > 0
+    for hints in (True, False):
+        got = acc["rwkv6-7b", "train", hints]
+        assert got["workspace_bytes"] <= got["workspace_temp_bytes"] <= \
+            got["temp_size_in_bytes"]
+    for (arch, mode, hints), got in acc.items():
+        if (arch, mode) != ("rwkv6-7b", "train"):
+            assert got["workspace_bytes"] == 0, (arch, mode, hints)

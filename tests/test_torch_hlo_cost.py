@@ -15,7 +15,8 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro.launch.hlo_cost import analyze as ref_analyze
-from repro_torch.launch.hlo_cost import HloCost, analyze
+from repro_torch.launch.hlo_cost import (HloCost, OpCounter, analyze,
+                                         workspace_registry)
 from repro_torch.launch.mesh import fake_world
 
 
@@ -142,3 +143,58 @@ def test_to_dict_keys_match_reference():
 
     args = (1.0, 2.0, {"all-gather": 3.0}, 4)
     assert HloCost(*args).to_dict() == RefHloCost(*args).to_dict()
+
+
+class TestWorkspace:
+    """A registered operator's scratch (``workspace_registry``): the WKV
+    backward's kernels allocate 278,921,216 bytes inside one call at B = 4,
+    S = 2048, H = N = 64 (``chip_smoke.py`` phase 16 reads that many on the
+    card), which its fake implementation, returning the outputs only,
+    cannot show."""
+
+    SHAPE = (4, 2048, 64, 64)
+
+    def _peak(self):
+        B, S, H, N = self.SHAPE
+        meta = dict(device="meta")
+        r, k, v = (torch.empty(self.SHAPE, dtype=torch.bfloat16, **meta)
+                   for _ in range(3))
+        lw, gy = (torch.empty(self.SHAPE, **meta) for _ in range(2))
+        u = torch.empty((H, N), **meta)
+        gs = torch.empty((B, H, N, N), **meta)
+        args = (r, k, v, lw, u, gy, gs)
+        with OpCounter() as counter:
+            counter.track(args)
+            outs = torch.ops.repro_torch.wkv_backward(*args)
+        held = sum(t.untyped_storage().nbytes() for t in args + outs)
+        return counter, held
+
+    def test_peak_rises_by_the_scratch(self, monkeypatch):
+        from repro_torch.kernels import wkv
+
+        counter, held = self._peak()
+        assert wkv.backward_scratch_bytes(*self.SHAPE) == 278_921_216
+        assert counter.workspace_bytes == 278_921_216
+        assert counter.peak_bytes == counter.workspace_peak_bytes == \
+            held + 278_921_216
+        # without the registration the same call peaks at what is held
+        monkeypatch.delitem(workspace_registry,
+                            torch.ops.repro_torch.wkv_backward)
+        bare, held_bare = self._peak()
+        assert bare.peak_bytes == held_bare == held
+        assert counter.peak_bytes - bare.peak_bytes == 278_921_216
+        assert bare.workspace_bytes == bare.workspace_peak_bytes == 0
+
+    def test_formula_is_what_the_wrapper_allocates(self):
+        """One function gives both: the registered formula sums the shapes
+        ``wkv_backward_launch`` allocates, B H (2 nc + 1) N^2 * 4 + 12 B H
+        nc N bytes with nc = ceil(S / 64)."""
+        from repro_torch.kernels import wkv
+
+        for B, S, H, N in ((4, 2048, 64, 64), (1, 65, 2, 16), (2, 1, 4, 64)):
+            nc = -(-S // 64)
+            want = B * H * (2 * nc + 1) * N * N * 4 + 12 * B * H * nc * N
+            assert wkv.backward_scratch_bytes(B, S, H, N) == want
+            meta = torch.empty((B, S, H, N), device="meta")
+            assert workspace_registry[torch.ops.repro_torch.wkv_backward](
+                meta, meta, meta, meta) == want

@@ -20,6 +20,7 @@ MODULES = sorted(PKG.rglob("*.py"))
 CARD_SIDE = [REPO / "chip_smoke.py", REPO / "tests" / "_torch_lm_card.py",
              REPO / "tests" / "_torch_train_card.py",
              REPO / "tests" / "_torch_congestion_plan.py",
+             REPO / "tests" / "_torch_scan_tiles.py",
              REPO / "tests" / "_torch_stepper_inputs.py",
              *sorted((REPO / "scripts").glob("*.py"))]
 
