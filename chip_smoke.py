@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json] [--phase 10|15|16]
+    python3 chip_smoke.py [--out results.json] [--phase 9|10|15|16]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -95,9 +95,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    counted).  Then a 16-instance sweep (n = 850..1000, 4 seeds each) under
    ``SweepConfig(warm_start=4)``, sequential and ``pipeline=True``: 4 and 1
    solver dispatches, the same arithmetic, so every mapping and cost
-   equal, objectives within that gap (bit-equality reported).  It prints each run's lp_s beside phase 4's
-   legacy ``pallas`` LP, iterations and restarts cold and warm, and the tol
-   LP's device busy time and idle share from a marker-checked profile.
+   equal, objectives within that gap (bit-equality reported).  Then the
+   pipelined sweep sharded over cards (``SweepConfig(devices=k)``): k = 1,
+   through the sharded code, and where more than one card is visible the
+   largest divisor of 4 no larger than the card count; one dispatch, the
+   congestion kernel's launches on each card = the sum over groups of 13 +
+   the most iterations of that card's lanes, and lane for lane against the
+   pipelined run: iterations, restarts and convergence equal, objectives
+   and bounds bit-equal or within rel 1e-6 (the largest gap printed), and
+   the lane-sum kernel launched.  With one card a line says the sharding
+   over several did not run.  The lane-sum kernel (``lane_sum.cu``, the tol
+   LP's sums over a lane's elements in an order that does not depend on the
+   batch) is held on every distinct input of the first tol evaluate:
+   bit-equal to ``ref.lane_sum_ordered``, each lane alone bit-equal to its
+   batch, within ``LANE_SUM_SLACK`` * eps * sum |x| of ``torch.sum``; timed
+   at the most frequent input beside ``torch.sum``.  It prints
+   each run's lp_s beside phase 4's legacy ``pallas`` LP, iterations and
+   restarts cold and warm, and the tol LP's device busy time and idle share
+   from a marker-checked profile.
 
 10. the constrained and GCT-like fleets, through the same kernels at new
    shapes.  (a) The 16 Table-I instances, each with constraints drawn by
@@ -221,7 +236,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    then the median of the warm steps), tokens/s, peak memory and the
    checkpoint's bytes, snapshot and commit seconds printed, with the host's
    memory and the disk's free space; the checkpoint restored into a fresh
-   model and state on the card, bit-equal to the live ones; then one warm
+   model and state on the card, bit-equal to the live ones, and again with
+   ``shardings=`` onto a one-card ``DeviceMesh`` (``Replicate()``, an NCCL
+   group of one rank), every local tensor bit-equal, its seconds beside the
+   plain restore's; then one warm
    step, and apart its data, forward + backward and optimizer update, under
    marker-checked profiles (kernels, busy ms, idle share, the costliest
    kernels) beside their bounds (the step's matmul operations at the bf16
@@ -237,7 +255,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    1; ``run_with_restarts`` with faults at steps 7 and 13 within rtol 1e-6 /
    atol 1e-7 of a clean 20-step run (bit-equality printed); ``launch.train``
    with ``--crash-at 12`` raises, and the same command again resumes from
-   step 10.
+   step 10.  (d) ``compressed_psum`` over an NCCL group of every visible card
+   (a world of one in this process on one card, else one spawned process
+   per card), leaf by leaf over qwen2.5-3b's 3.086 B parameter elements in
+   float32 drawn from seeded generators: a world of one bit-equal to
+   ``compress_decompress``, more cards within each block's quantization
+   bound of a float32 ``all_reduce``; ms for the whole tree beside the
+   ``all_reduce``'s, and bytes on the wire.  With one card a line says the
+   forms over several did not run.  ``--phase 9`` runs phases 1, 2, 9.3's
+   pipelined and sharded sweeps and 14d only.
 15. the LM dry-run (``repro_torch.launch.dryrun``), which runs no kernel,
    then the rightsizer on its records, which runs two.  (a) ``python -m
    repro_torch.launch.dryrun`` in one process per cell of ``DRYRUN_CELLS``
@@ -308,6 +334,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -335,6 +362,11 @@ COST_RTOL = 1e-5               # a flipped placement moves a whole node price
 FLEET = 16                     # Table-I instances in the main path's fleet
 TOL = 5e-3                     # phase 9's SolverConfig(tol=...)
 BOUND_RTOL = 1e-6              # phase 9's certified cross-bounds
+# the lane-sum kernel against torch's sum: each within depth * eps * sum |x|
+# of the exact sum, depth the adds on an element's way (64 in a thread's run
+# of a chunk, 10 in the butterflies, as many again past one chunk), torch's
+# taken as the kernel's: |kernel - torch| <= LANE_SUM_SLACK * eps * sum |x|
+LANE_SUM_SLACK = 2 * (64 + 10 + 20)
 
 SOURCES = {
     # one kernel, two entries: the TPU contract at G = B*m groups, and the
@@ -366,6 +398,10 @@ SOURCES = {
     "linear_scan_backward": (
         "src/repro_torch/kernels/csrc/scan.cu",
         "none — src/repro/models/rglru.py:84 associative_scan"),
+    # replaces no Pallas kernel: the tol LP's sums over a lane's elements,
+    # which the reference leaves to XLA (phase 9)
+    "lane_sum": ("src/repro_torch/kernels/csrc/lane_sum.cu",
+                 "none — src/repro/core/batch.py:318 jnp.sum"),
 }
 
 
@@ -644,10 +680,10 @@ def timing_line(name, info) -> str:
 
 
 class Recorder:
-    """Wraps a kernel wrapper to keep each distinct call shape's first
-    inputs (cloned before the call) and the number of calls per shape, or
-    with ``every`` every call's inputs in ``log``; the wrapped function
-    still counts its own launches."""
+    """Wraps a kernel wrapper to keep each distinct call shape's (shapes
+    and dtypes) first inputs (cloned before the call) and the number of
+    calls per shape, or with ``every`` every call's inputs in ``log``; the
+    wrapped function still counts its own launches."""
 
     def __init__(self, torch, module, name, every: bool = False):
         self.torch, self.module, self.name = torch, module, name
@@ -658,8 +694,8 @@ class Recorder:
         self.log = []
 
     def __call__(self, *args, **kwargs):
-        key = tuple(tuple(a.shape) if hasattr(a, "shape") else a
-                    for a in args)
+        key = tuple((tuple(a.shape), str(a.dtype)) if hasattr(a, "shape")
+                    else a for a in args)
         self.calls[key] += 1
         if self.every or key not in self.inputs:
             saved = tuple(a.clone() if isinstance(a, self.torch.Tensor) else a
@@ -1315,6 +1351,199 @@ def lane_report(np, res) -> dict:
             **iter_summary(np, res.stats)}
 
 
+def sweep_shard_counts(torch) -> list[int]:
+    """Phase 9.3's shard counts: 1 (one shard, through the sharded code),
+    and where more than one card is visible the largest divisor of the
+    group size 4 that is no larger than the card count."""
+    most = max(d for d in (1, 2, 4) if d <= torch.cuda.device_count())
+    return [1] if most == 1 else [1, most]
+
+
+def compare_lanes(np, a_res, b_res) -> dict:
+    """Two runs of one sweep lane for lane: iterations, restarts and
+    convergence equal; objectives and bounds bit-equal, or their largest
+    relative gap held to ``BOUND_RTOL``.  Returns the counts, that gap and
+    the failed checks."""
+    out = {"lanes": len(a_res.lp_results), "bit_equal": 0,
+           "max_rel_gap": 0.0, "mappings_equal": 0, "costs_equal": 0,
+           "errors": []}
+    for i, (a, b) in enumerate(zip(a_res.lp_results, b_res.lp_results)):
+        if (a.iters, a.restarts, a.converged) != (b.iters, b.restarts,
+                                                  b.converged):
+            out["errors"].append(
+                f"lane {i}: iterations/restarts/convergence "
+                f"{(a.iters, a.restarts, a.converged)} vs "
+                f"{(b.iters, b.restarts, b.converged)}")
+        pairs = ((a.objective, b.objective), (a.lower_bound, b.lower_bound))
+        out["bit_equal"] += all(x == y for x, y in pairs)
+        gap = max(abs(x - y) / max(abs(x), abs(y), 1e-30) for x, y in pairs)
+        out["max_rel_gap"] = max(out["max_rel_gap"], gap)
+        out["mappings_equal"] += bool(np.array_equal(a.mapping, b.mapping))
+        out["costs_equal"] += (a_res.entries[i]["costs"]
+                               == b_res.entries[i]["costs"])
+    if out["max_rel_gap"] > BOUND_RTOL:
+        out["errors"].append(f"objectives/bounds rel gap "
+                             f"{out['max_rel_gap']:.3e} > {BOUND_RTOL}")
+    return out
+
+
+def lane_sum_checks(torch, ref, klane, rec) -> dict:
+    """The lane-sum kernel on every distinct input the tol path gave it
+    (``rec``, a ``Recorder``): bit-equal to ``ref.lane_sum_ordered`` (its
+    order of adds), each lane alone bit-equal to the same lane in the
+    batch, and within ``LANE_SUM_SLACK`` * eps * sum |x| of torch's sum
+    (the plain version; the largest gap also as a share of sum |x|); then
+    timed at the most frequent input: device ms of the kernel, the plain
+    version and ``torch.sum``, and the bound (each element read once and
+    added once).  Returns the kernels line's fields."""
+    worst = worst_rel = 0.0
+    for (x, dims) in rec.inputs.values():
+        got = klane.lane_sum(x, dims)
+        plain = ref.lane_sum_ref(x, dims)
+        if not torch.equal(got, ref.lane_sum_ordered(x, dims, klane.CHUNK)):
+            raise AssertionError(f"lane_sum {tuple(x.shape)} {dims}: not the "
+                                 f"kernel's order of adds")
+        for b in range(x.shape[0]):
+            if not torch.equal(klane.lane_sum(x[b:b + 1].clone(), dims),
+                               got[b:b + 1]):
+                raise AssertionError(f"lane_sum {tuple(x.shape)} {dims}: "
+                                     f"lane {b} alone has other bits")
+        diff = (got.double() - plain.double()).abs()
+        mag = x.abs().double().sum(dim=dims, keepdim=True)
+        slack = LANE_SUM_SLACK * torch.finfo(x.dtype).eps * mag
+        if not bool((diff <= slack).all()):
+            raise AssertionError(f"lane_sum {tuple(x.shape)} {dims}: |kernel "
+                                 f"- torch.sum| {float(diff.max()):.3e} past "
+                                 f"its slack")
+        worst = max(worst, float(diff.max()))
+        worst_rel = max(worst_rel, float((diff / mag.clamp_min(1e-300)).max()))
+    key = rec.calls.most_common(1)[0][0]
+    x, dims = rec.inputs[key]
+    wide = x.dtype == torch.float64
+    outs = x.numel() // max(1, math.prod(x.shape[d] for d in dims))
+    nbytes = (x.numel() + outs) * x.element_size()
+    b_ms, b_by = bound(nbytes, x.numel(),
+                       PEAK_F64_FLOPS if wide else PEAK_F32_FLOPS)
+    info = {"shape": {"x": list(x.shape), "dims": list(dims),
+                      "dtype": str(x.dtype)},
+            "inputs": len(rec.inputs), "calls": sum(rec.calls.values()),
+            "max_abs_err": worst, "max_rel_err": worst_rel,
+            "ms": device_ms(torch, lambda: klane.lane_sum(x, dims)),
+            "plain_ms": device_ms(torch, lambda: ref.lane_sum_ref(x, dims)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": device_ms(torch, lambda: torch.sum(
+                x, dim=dims, keepdim=True)),
+            "call_ms": cuda_ms(torch, lambda: klane.lane_sum(x, dims)),
+            # the host's cost of the call the kernel replaced, for the
+            # launch-bound tol loop
+            "library_call_ms": cuda_ms(torch, lambda: torch.sum(
+                x, dim=dims, keepdim=True))}
+    log(f"lane_sum: {len(rec.inputs)} distinct inputs of "
+        f"{info['calls']} calls bit-equal to the ordered plain version, "
+        f"every lane alone bit-equal to its batch, max |kernel - torch.sum| "
+        f"{worst:.3e} (the padded types' caps are huge), at most "
+        f"{worst_rel:.3e} of sum |x|")
+    log(timing_line("lane_sum", info))
+    log(f"lane_sum: wall ms per call back to back, torch.sum "
+        f"{info['library_call_ms']:.6f} against the wrapper's "
+        f"{info['call_ms']:.6f}")
+    return info
+
+
+def sharded_sweeps(torch, np, kernels, cong, solver, place, grid,
+                   pipe) -> dict:
+    """9.3: the pipelined sweep sharded over cards (``SweepConfig(devices=
+    k)`` for each of ``sweep_shard_counts``), counts set to 0 just before
+    and read just after: one dispatch; each run held lane for lane against
+    the pipelined run ``pipe`` (``compare_lanes``); the congestion kernel's
+    launches on card i = the sum over groups of 13 + the most iterations of
+    card i's lanes (each shard's early exit stops on its own).  Returns per
+    k its lp_s, wall, launches per card and comparison, and the failed
+    checks under "errors"."""
+    from repro_torch.core import FleetEngine, SweepConfig, dispatch_count
+
+    out: dict = {"errors": []}
+    for k in sweep_shard_counts(torch):
+        eng = FleetEngine(solver=solver, placement=place,
+                          sweep=SweepConfig(warm_start=4, pipeline=True,
+                                            devices=k))
+        for i in range(k):
+            torch.cuda.synchronize(i)
+        kernels.reset_launch_counts()
+        d0 = dispatch_count()
+        t0 = time.perf_counter()
+        r = eng.evaluate(grid)
+        for i in range(k):
+            torch.cuda.synchronize(i)
+        wall = time.perf_counter() - t0
+        disp = dispatch_count() - d0
+        by_card = cong.launches_by_card()
+        n_sum = kernels.launch_counts()["lane_sum"]
+        per = 4 // k
+        want = {i: sum(13 + int(st.iterations[i * per:(i + 1) * per].max())
+                       for st in r.stats) for i in range(k)}
+        cmp = compare_lanes(np, pipe, r)
+        log(f"tol: sweep sharded devices={k}: wall {wall:.3f} s, LP "
+            f"{r.timings['lp_s']:.3f} s (pipelined LP "
+            f"{pipe.timings['lp_s']:.3f} s), {disp} dispatch; congestion "
+            f"launches per card {by_card} (want {want}), lane_sum launches "
+            f"{n_sum}; lane for lane vs pipelined: {cmp}")
+        errors = [f"sweep devices={k} {e}" for e in cmp.pop("errors")]
+        if disp != 1:
+            errors.append(f"sweep devices={k}: {disp} dispatches, want 1")
+        if n_sum <= 0:
+            errors.append(f"sweep devices={k}: the lane-sum kernel never "
+                          f"launched")
+        if by_card != want:
+            errors.append(f"sweep devices={k}: congestion launches per card "
+                          f"{by_card}, want {want}")
+        out["errors"] += errors
+        out[k] = {"wall_s": wall, "lp_s": r.timings["lp_s"],
+                  "launches_by_card": by_card, "lane_sum_launches": n_sum,
+                  "compared": cmp}
+    if len(out) == 2:
+        log(f"tol: sweep sharded over more than one card not run: "
+            f"{torch.cuda.device_count()} card visible")
+    return out
+
+
+def multicard_phase(torch, np, kernels, cong, report) -> None:
+    """``--phase 9``: phase 9.3's pipelined sweep (once to warm up, then the
+    run it keeps), its sharded runs (``sharded_sweeps``) and phase 14d
+    (``collective_phase``): the paths that run over every visible card."""
+    from repro_torch.core import (FleetEngine, PlacementConfig, SolverConfig,
+                                  SweepConfig)
+    from repro_torch.kernels import lane_sum as klane
+    from repro_torch.kernels import ref
+    from repro_torch.workload import SyntheticSpec, sweep_specs, synthetic_batch
+
+    solver = SolverConfig(tol=TOL, iters=4000, operator="pallas")
+    place = PlacementConfig(engine="compiled")
+    grid = synthetic_batch(sweep_specs(SyntheticSpec(), seeds=4,
+                                       n=(850, 900, 950, 1000)))
+    eng = FleetEngine(solver=solver, placement=place,
+                      sweep=SweepConfig(warm_start=4, pipeline=True))
+    with Recorder(torch, klane, "lane_sum") as rec_s:
+        pipe = eng.evaluate(grid)  # warm-up, its lane-sum inputs kept
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = eng.evaluate(grid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"tol: sweep pipelined wall {wall:.3f} s, LP "
+        f"{pipe.timings['lp_s']:.3f} s")
+    lane_sum = lane_sum_checks(torch, ref, klane, rec_s)
+    sharded = sharded_sweeps(torch, np, kernels, cong, solver, place, grid,
+                             pipe)
+    errors = sharded.pop("errors")
+    report["multicard"] = {"pipelined_wall_s": wall,
+                           "pipelined_lp_s": pipe.timings["lp_s"],
+                           "lane_sum": lane_sum, "sharded": sharded,
+                           "collective": collective_phase(torch)}
+    if errors:
+        raise AssertionError("tol: " + "; ".join(errors))
+
+
 def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
               report) -> dict:
     """Phase 9: tolerance mode (see the module docstring).  Returns the tol
@@ -1324,6 +1553,7 @@ def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
     from repro_torch.core import (FleetEngine, PlacementConfig, SolverConfig,
                                   SweepConfig, dispatch_count)
     from repro_torch.core import batch as tbatch
+    from repro_torch.kernels import lane_sum as klane
     from repro_torch.workload import SyntheticSpec, sweep_specs, synthetic_batch
 
     t_phase = time.perf_counter()
@@ -1340,8 +1570,9 @@ def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
 
     # 9.1 the tol evaluate through the congestion kernel and the stepper
     engine = FleetEngine(solver=solver, placement=place)
-    res, wall, launches, last = tol_evaluate(torch, kernels, cong, engine,
-                                             fleet)
+    with Recorder(torch, klane, "lane_sum") as rec_s:
+        res, wall, launches, last = tol_evaluate(torch, kernels, cong,
+                                                 engine, fleet)
     cold = iter_summary(np, res.stats)
     want = sum(13 + int(s.iterations.max()) for s in res.stats)
     log(f"tol: wall {wall:.3f} s; LP {res.timings['lp_s']:.3f} s, placement "
@@ -1361,6 +1592,9 @@ def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
     log(f"tol: all {len(res.lp_results)} lanes converged (kkt <= "
         f"{tol32!r}); congestion launches {want} = 13 + max iterations; tol "
         f"and legacy certified bounds cross-hold (rel {BOUND_RTOL})")
+    if launches["lane_sum"] <= 0:
+        raise AssertionError("tol: the lane-sum kernel never launched")
+    lane_sum = lane_sum_checks(torch, ref, klane, rec_s)
 
     # the last tol-mode apply, replayed on the plain version
     start, end, w_all, x, Tp = last
@@ -1411,6 +1645,9 @@ def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
     cmp_s = compare_tol_runs(np, seq, pipe, exact=True)
     log(f"tol: sweep sequential vs pipelined: {cmp_s}")
     failed += [f"sweep sequential vs pipelined {e}" for e in cmp_s["errors"]]
+    sharded = sharded_sweeps(torch, np, kernels, cong, solver, place, grid,
+                             pipe)
+    failed += sharded.pop("errors")
 
     # 9.4 the tol LP alone under a marker-checked profile
     def tol_lp():
@@ -1443,6 +1680,8 @@ def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
             "tol dense": res_d.timings["lp_s"],
             "sweep sequential": seq.timings["lp_s"],
             "sweep pipelined": pipe.timings["lp_s"],
+            **{f"sweep sharded devices={k}": run["lp_s"]
+               for k, run in sharded.items()},
             "legacy pallas (phase 4)": tm["lp_s"]}
     log("tol: lp_s " + ", ".join(f"{k} {v:.3f}" for k, v in lp_s.items()))
     phase_s = time.perf_counter() - t_phase
@@ -1459,13 +1698,19 @@ def tol_phase(torch, np, ref, kernels, cong, fleet, res_np, tm,
         "dense": {"wall_s": wall_d, "timings": res_d.timings,
                   "entries": res_d.entries, "against_pallas": cmp_d},
         "sweep": {"sequential_wall_s": w_seq, "pipelined_wall_s": w_pipe,
-                  "dispatches": [d_seq, d_pipe], "compared": cmp_s},
-        "replay_max_abs_err": e_tol, "lp_s": lp_s,
+                  "dispatches": [d_seq, d_pipe], "compared": cmp_s,
+                  "sharded": sharded},
+        "replay_max_abs_err": e_tol, "lp_s": lp_s, "lane_sum": lane_sum,
         "profiled": {"wall_s": timing.get("wall_s"), "device_busy_s": busy,
                      "idle_share": idle,
                      "idle_share_of_unprofiled_lp": idle_unprof},
         "phase_s": phase_s}
-    return {"launches": launches, "max_abs_err": e_tol}
+    # the lane-sum kernel's launches on this slice's path: the sharded
+    # sweep over the most cards
+    lane_sum["sharded_launches"] = {
+        k: run["lane_sum_launches"] for k, run in sharded.items()}
+    lane_sum["launches"] = sharded[max(sharded)]["lane_sum_launches"]
+    return {"launches": launches, "max_abs_err": e_tol, "lane_sum": lane_sum}
 
 
 # --- phase 10: the constrained and GCT-like fleets -----------------------------
@@ -3264,7 +3509,12 @@ def train_full(torch, report) -> dict:
             raise AssertionError(f"14a: restored leaves differ: {unequal[:5]}")
         log(f"train 14a: restored {len(fresh)} leaves into a fresh model and "
             f"state on the card in {restore_s:.3f} s, bit-equal")
-        del m2, s2, live, fresh
+        del m2, s2, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+        restore_sharded_s = sharded_restore(torch, checkpoint, ckdir, model,
+                                            state, live, restore_s)
+        del live
         gc.collect()
         torch.cuda.empty_cache()
     finally:
@@ -3309,7 +3559,8 @@ def train_full(torch, report) -> dict:
            "grad_norms": gnorms, "step_s": walls, "warm_step_s": warm_s,
            "tokens_per_s": tok_s, "peak_bytes": peak,
            "earlier_phases_bytes": base, "run_s": run_s, "checkpoint": rec,
-           "restore_s": restore_s, "profiled": prof, "bounds": bounds,
+           "restore_s": restore_s, "restore_sharded_s": restore_sharded_s,
+           "profiled": prof, "bounds": bounds,
            "card": report["card"]}
     del model, state, step_fn, params, plist
     gc.collect()
@@ -3465,6 +3716,211 @@ def train_reference_setups(torch, dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def card_world(torch):
+    """An NCCL process group of one rank, this process on card 0, for the
+    block's duration (a one-card ``DeviceMesh`` needs one; phase 15's fake
+    group needs none to be left); destroyed on exit."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    (HERE / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="world_", dir=HERE / "build")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(pathlib.Path(tmp) / "store"), 1), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sharded_restore(torch, checkpoint, ckdir, model, state, live,
+                    restore_s) -> float:
+    """14a: the same checkpoint restored with ``shardings=`` onto a one-card
+    ``DeviceMesh`` (every leaf ``Replicate()``), the parameters as a dict of
+    the model's named parameters: every leaf a ``DTensor`` whose local
+    tensor is bit-equal to the live one.  Returns its seconds."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    with card_world(torch):
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("data",))
+        like = (dict(model.named_parameters()), state)
+        t0 = time.perf_counter()
+        tree, got = checkpoint.restore(ckdir, like,
+                                       shardings=(mesh, [Replicate()]))
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        fresh = list(checkpoint._leaves(tree))
+        if got != TRAIN_STEPS or [k for k, _ in live] != [k for k, _ in fresh]:
+            raise AssertionError(f"14a: sharded restore: step {got}")
+        unequal = [k for (k, a), (_k, b) in zip(live, fresh)
+                   if not isinstance(b, DTensor) or a.dtype != b.dtype
+                   or not torch.equal(a, b.to_local())]
+        if unequal:
+            raise AssertionError(
+                f"14a: sharded restore: leaves differ: {unequal[:5]}")
+        del tree, fresh
+    log(f"train 14a: restored {len(live)} leaves with shardings= onto a "
+        f"one-card DeviceMesh (Replicate) in {sharded_s:.3f} s (plain "
+        f"restore {restore_s:.3f} s), bit-equal")
+    return sharded_s
+
+
+def psum_rank(rank: int, world: int, store: str, out: str | None,
+              device_type: str = "cuda", shapes=None):
+    """14d: one rank of ``compressed_psum`` over an NCCL group of ``world``
+    cards (rank i on card i), leaf by leaf over qwen2.5-3b's parameter
+    shapes, on float32 gradients from ``torch.Generator`` seeded by rank and
+    leaf, with zero residuals (a first step).  A world of one is held
+    bit-equal to ``compress_decompress``; more ranks are held against a
+    float32 ``all_reduce`` of the corrected gradients within the sum over
+    participants of each block's max |value| / 254 (half a quantization
+    step each), plus float32 rounding of both sums.  Also times a float32
+    ``all_reduce`` of every leaf.  Returns rank 0's readings (and writes
+    them to ``out`` as JSON when given); raises on a failed check.
+    ``device_type="cpu"`` runs the same on a gloo group of CPU ranks and
+    ``shapes`` replaces the parameter shapes: a rehearsal on a host without
+    a card (``torch.multiprocessing.spawn(psum_rank, args=(4, store, out,
+    "cpu", [(1000,), (7, 37)]), nprocs=4)``)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.train import compression
+
+    on_card = device_type == "cuda"
+    if on_card:
+        torch.cuda.set_device(rank)
+    dev = torch.device(device_type, rank if on_card else None)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                store=dist.FileStore(store, world),
+                                rank=rank, world_size=world)
+    try:
+        mesh = DeviceMesh(device_type, list(range(world)),
+                          mesh_dim_names=("pod",))
+        if shapes is None:
+            shapes = [tuple(p.shape) for _, p in Model(
+                get_config(TRAIN_ARCH),
+                torch.device("meta")).named_parameters()]
+        eps = float(torch.finfo(torch.float32).eps)
+        # the group's communicator is made at its first collective: not timed
+        dist.all_reduce(torch.ones(1, device=dev))
+        sync()
+        psum_s = reduce_s = 0.0
+        elems = payload = 0
+        worst = 0.0
+        with use_mesh(mesh):
+            for i, shape in enumerate(shapes):
+                g = torch.Generator(device=dev).manual_seed(
+                    1000003 * rank + i)
+                grad = torch.randn(shape, generator=g, device=dev)
+                err = torch.zeros(shape, device=dev)
+                sync()
+                t0 = time.perf_counter()
+                deq, new_err = compression.compressed_psum(grad, err, "pod")
+                sync()
+                psum_s += time.perf_counter() - t0
+                full = grad + err
+                t0 = time.perf_counter()
+                dist.all_reduce(full)
+                sync()
+                reduce_s += time.perf_counter() - t0
+                q, scale, n = compression.quantize_int8(grad + err)
+                elems += n
+                payload += q.numel() + 4 * scale.numel()
+                if world == 1:
+                    want, want_err = compression.compress_decompress(grad,
+                                                                     err)
+                    if not (torch.equal(deq, want)
+                            and torch.equal(new_err, want_err)):
+                        raise AssertionError(
+                            f"14d: leaf {i} {shape}: compressed_psum on a "
+                            f"world of one differs from compress_decompress")
+                    continue
+                scales = torch.empty((world * scale.shape[0], 1),
+                                     device=dev)
+                dist.all_gather_into_tensor(scales, scale)
+                half = scales.reshape(world, -1, 1).sum(0) / 2
+                mag = scales.reshape(world, -1, 1).sum(0) * 127
+                bound = ((half + 4 * world * eps * mag).expand(-1, 256)
+                         .reshape(-1)[:n].reshape(shape))
+                over = (deq - full).abs() - bound
+                if bool((over > 0).any()):
+                    raise AssertionError(
+                        f"14d: leaf {i} {shape}: |psum - all_reduce| over "
+                        f"its bound by {float(over.max()):.3e}")
+                worst = max(worst, float(((deq - full).abs()
+                                          / bound.clamp_min(1e-30)).max()))
+        out_d = {"world": world, "leaves": len(shapes), "elements": elems,
+                 "psum_ms": psum_s * 1e3, "float32_all_reduce_ms":
+                 reduce_s * 1e3, "payload_bytes": payload,
+                 "float32_payload_bytes": 4 * elems,
+                 "received_bytes_all_gather": (world - 1) * payload,
+                 "received_bytes_ring_all_reduce":
+                 2 * (world - 1) / world * 4 * elems,
+                 "worst_share_of_bound": worst}
+        if out is not None and rank == 0:
+            pathlib.Path(out).write_text(json.dumps(out_d))
+        return out_d
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def collective_phase(torch) -> dict:
+    """14d: ``compressed_psum`` over an NCCL group of every visible card (a
+    world of one, in this process, on one card; one spawned process per
+    card otherwise), see ``psum_rank``."""
+    import shutil
+    import tempfile
+
+    world = torch.cuda.device_count()
+    (HERE / "build").mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="psum_", dir=HERE / "build"))
+    t0 = time.perf_counter()
+    try:
+        if world == 1:
+            got = psum_rank(0, 1, str(tmp / "store"), None)
+        else:
+            import torch.multiprocessing as mp
+
+            mp.spawn(psum_rank, args=(world, str(tmp / "store"),
+                                      str(tmp / "rank0.json")),
+                     nprocs=world, join=True)
+            got = json.loads((tmp / "rank0.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got["phase_s"] = time.perf_counter() - t0
+    held = ("bit-equal to compress_decompress" if world == 1 else
+            f"within the quantization bound of a float32 all_reduce "
+            f"(worst {got['worst_share_of_bound']:.4f} of it)")
+    log(f"train 14d: compressed_psum over {world} card(s), {got['leaves']} "
+        f"{TRAIN_ARCH} leaves, {got['elements']} float32 elements: "
+        f"{got['psum_ms']:.3f} ms for the tree (float32 all_reduce "
+        f"{got['float32_all_reduce_ms']:.3f} ms), {held}; payload per "
+        f"participant {got['payload_bytes']} bytes int8 + scales against "
+        f"{got['float32_payload_bytes']} float32 "
+        f"({got['float32_payload_bytes'] / got['payload_bytes']:.3f}x); "
+        f"bytes each rank receives: all-gather "
+        f"{got['received_bytes_all_gather']}, ring all-reduce "
+        f"{got['received_bytes_ring_all_reduce']:.0f}")
+    if world == 1:
+        log("train 14d: compressed_psum over more than one card not run: "
+            "1 card visible")
+    return got
+
+
 def train_phase(torch, report) -> dict:
     """Phase 14: the LM training path (14a qwen2.5-3b at full width, 14b
     every architecture card vs CPU, 14c the reference test's setups)."""
@@ -3475,10 +3931,12 @@ def train_phase(torch, report) -> dict:
     out["archs"] = train_archs_card_vs_cpu(torch, dev)
     t_c = time.perf_counter()
     out["setups"] = train_reference_setups(torch, dev)
+    t_d = time.perf_counter()
+    out["collective"] = collective_phase(torch)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"train: phase 14 took {out['phase_s']:.1f} s (14a "
         f"{t_b - t_phase:.1f} s, 14b {t_c - t_b:.1f} s, 14c "
-        f"{time.perf_counter() - t_c:.1f} s)")
+        f"{t_d - t_c:.1f} s, 14d {time.perf_counter() - t_d:.1f} s)")
     report["train"] = out
     return out
 
@@ -4280,8 +4738,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--phase", type=int, choices=[10, 15, 16], default=None,
-                    help="run phases 1, 2 and this one only (10: phases "
+    ap.add_argument("--phase", type=int, choices=[9, 10, 15, 16],
+                    default=None,
+                    help="run phases 1, 2 and this one only (9: 9.3's "
+                         "pipelined and sharded sweeps and 14d; 10: phases "
                          "3, 10c and 10d too; no kernels line)")
     args = ap.parse_args(argv)
 
@@ -4334,6 +4794,9 @@ def main(argv=None) -> int:
 
     if args.phase == 16:
         recurrent_phase(torch, report, dev)
+        return finish(torch, args, report, card, None)
+    if args.phase == 9:
+        multicard_phase(torch, np, kernels, cong, report)
         return finish(torch, args, report, card, None)
     # 15a starts here and runs beside phases 3-12 (see DryrunCells)
     if args.phase != 10:
@@ -4639,6 +5102,8 @@ def main(argv=None) -> int:
         kinfo[name]["tol_launches"] = tol["launches"]["congestion_many"]
     kinfo["congestion_lp"]["max_abs_err"] = max(
         kinfo["congestion_lp"]["max_abs_err"], tol["max_abs_err"])
+    kinfo["lane_sum"] = dict(tol["lane_sum"],
+                             tol_launches=tol["launches"]["lane_sum"])
 
     # 10. the constrained Table-I fleet and the GCT-like fleet
     con = constrained_phase(torch, np, ref, kernels, cong, fleet, report)
@@ -4731,7 +5196,9 @@ def main(argv=None) -> int:
             "wkv_backward":
                 rec["train"]["rwkv6-7b"]["launches"]["wkv_backward"],
             "linear_scan_backward": rec["train"]["recurrentgemma-9b"][
-                "launches"]["linear_scan_backward"]}
+                "launches"]["linear_scan_backward"],
+            # phase 9.3's sweep sharded over the most cards (tol mode)
+            "lane_sum": kinfo["lane_sum"]["launches"]}
     for name in ("wkv", "linear_scan"):
         kinfo[name]["train_launches"] = {
             arch: got["launches"].get(name, 0)
@@ -4757,6 +5224,7 @@ def main(argv=None) -> int:
                                               "phase12_ms",
                                               "phase15_launches",
                                               "train_launches",
+                                              "sharded_launches",
                                               "max_rel_err", "shape",
                                               "plan")
             if key in kinfo[name]}}

@@ -19,7 +19,8 @@ LP of all B instances at once on one device, in one of two regimes:
 
 ``_sweep_impl`` chains warm-started solves over a grid-adjacent sequence of
 instance groups; ``pipeline=True`` runs that chain as one host call with
-every group's state kept on the device.
+every group's state kept on the device, its lanes sharded over several
+cards with ``devices``.
 
 Padding scheme (exact — padded coordinates never perturb real ones):
 
@@ -39,6 +40,7 @@ f64 polish take the cumsum form instead, as the reference does.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import lane_sum as klane
 from .lp_pdhg import PDHGResult, PDHGState, SolveStats
 from .problem import Problem, feasible_types, require_lowered, trim_timeline
 
@@ -245,20 +248,28 @@ def _project_simplex_masked(v, mask, mass=None):
     return out * (s / (out.sum(dim=-1, keepdim=True) + 1e-30))
 
 
-def _project_capped_simplex_td(y, cap):
+def _plain_sums(v, dims):
+    """``v.sum(dim=dims, keepdim=True)``: torch's own sum, which the legacy
+    fixed-step path keeps (it is never sharded)."""
+    return v.sum(dim=dims, keepdim=True)
+
+
+def _project_capped_simplex_td(y, cap, sums=_plain_sums):
     """Project y (B, T', m, D) onto {y >= 0, sum_{t,d} y <= cap} per (b, m);
-    cap is (B, 1, m, 1)."""
+    cap is (B, 1, m, 1).  ``sums(v, (1, 3))`` sums a lane's (T', D): tol
+    mode passes the lane-sum kernel (``kernels.lane_sum``), whose order does
+    not depend on the batch."""
     y = torch.clamp_min(y, 0.0)
-    total = y.sum(dim=(1, 3), keepdim=True)
+    total = sums(y, (1, 3))
     theta = torch.zeros_like(total)
     for _ in range(_NEWTON_ITERS_Y):
-        r = torch.clamp_min(y - theta, 0.0).sum(dim=(1, 3), keepdim=True)
+        r = sums(torch.clamp_min(y - theta, 0.0), (1, 3))
         k = (y > theta).sum(dim=(1, 3), keepdim=True)
         theta = theta + torch.clamp_min(r - cap, 0.0) / torch.clamp_min(k, 1)
     shrunk = torch.clamp_min(y - theta, 0.0)
     # scale out any Newton residue: keeps sum <= cap exactly, so the dual
     # value stays a certified lower bound
-    ssum = shrunk.sum(dim=(1, 3), keepdim=True)
+    ssum = sums(shrunk, (1, 3))
     shrunk = shrunk * (cap / torch.maximum(ssum, cap))
     return torch.where(total <= cap, y, shrunk)
 
@@ -347,7 +358,13 @@ def _make_operators(w_all, start, end, Tp: int, operator: str):
     raise ValueError(f"unknown operator {operator!r}")
 
 
-def _power_op_norm(fwd_all, adj_all, feas, power_iters: int):
+def _lane_sum(v, sums=_plain_sums):
+    """(B,) sums of each lane's elements (every axis but the first)."""
+    return sums(v, tuple(range(1, v.dim()))).reshape(v.shape[0])
+
+
+def _power_op_norm(fwd_all, adj_all, feas, power_iters: int,
+                   sums=_plain_sums):
     """||A||_2 per instance: power iteration on A^T A from the
     (nonnegative, deterministic, padding-invariant) feasibility pattern."""
     v = feas.to(torch.float32)
@@ -355,7 +372,7 @@ def _power_op_norm(fwd_all, adj_all, feas, power_iters: int):
                       device=feas.device)
     for _ in range(power_iters):
         v2 = adj_all(fwd_all(v))
-        norm = torch.sqrt((v2 * v2).sum(dim=(1, 2)))
+        norm = torch.sqrt(_lane_sum(v2 * v2, sums))
         v = v2 / (norm[:, None, None] + 1e-30)
     return torch.sqrt(norm)
 
@@ -474,14 +491,32 @@ def _eta_factors(k: int) -> tuple[float, float]:
             float(np.float32(1.0) + kk ** np.float32(-0.6)))
 
 
-def _tol_core(w_all, start, end, feas, cost, step_scale: float, tol: float,
-              max_iters: int, check_every: int, Tp: int, operator: str,
-              adaptive: bool, restart: bool, power_iters: int, scaling: str,
-              precision: str, omega_on: bool, x0=None, y0=None,
-              eta_init=None, omega_init=None):
+def _tol_core(*args, **kwargs):
     """Adaptive restarted PDHG with per-lane tolerance stopping, on device
     tensors (the reference's ``_tol_core``; its jitted one-batch wrapper
-    ``_pdhg_run_many_tol`` has no counterpart here, there being no trace).
+    ``_pdhg_run_many_tol`` has no counterpart here, there being no trace):
+    ``_tol_steps`` run to its end."""
+    return _drive(_tol_steps(*args, **kwargs))
+
+
+def _drive(steps):
+    """Run a generator of solver steps to its end; returns its value."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
+
+
+def _tol_steps(w_all, start, end, feas, cost, step_scale: float, tol: float,
+               max_iters: int, check_every: int, Tp: int, operator: str,
+               adaptive: bool, restart: bool, power_iters: int, scaling: str,
+               precision: str, omega_on: bool, x0=None, y0=None,
+               eta_init=None, omega_init=None):
+    """The tol-mode solve as a generator: it yields once a chunk's
+    launches are queued, just before that chunk's host read, so a caller
+    can queue other solves' chunks on other cards first, and returns the
+    solve's tensors.
 
     Chunks of ``min(check_every, max_iters - k)`` attempts run without a
     host read; after each chunk the f64 certificate, the restart test and
@@ -497,6 +532,10 @@ def _tol_core(w_all, start, end, feas, cost, step_scale: float, tol: float,
     """
     B, n, m, D = w_all.shape
     dev = w_all.device
+    # every sum over a lane's elements goes through the lane-sum kernel,
+    # whose order does not depend on the batch, so a lane solved in a
+    # smaller batch (a shard of the sharded sweep pipeline) keeps its bits
+    sums = klane.lane_sum
     if operator == "pallas" and precision == "f64":
         operator = "cumsum"  # the kernel is f32; cumsum is the same map
     it_dt = torch.float64 if precision == "f64" else torch.float32
@@ -513,8 +552,8 @@ def _tol_core(w_all, start, end, feas, cost, step_scale: float, tol: float,
         ws_all, cost_s, mass = w_all, cost, None
 
     fwd_all, adj_all = _make_operators(ws_all, start, end, Tp, operator)
-    op_norm = _power_op_norm(fwd_all, adj_all, feas,
-                             power_iters).to(it_dt)
+    op_norm = _power_op_norm(fwd_all, adj_all, feas, power_iters,
+                             sums).to(it_dt)
     eta0 = step_scale / (op_norm + 1e-30)                     # (B,)
     eta_lo, eta_hi = eta0 / _ETA_CLIP, eta0 * _ETA_CLIP
     cap = cost_s[:, None, :, None]
@@ -534,7 +573,7 @@ def _tol_core(w_all, start, end, feas, cost, step_scale: float, tol: float,
         y = y0.to(it_dt)
         if scaling == "ruiz":
             y = y / r_sc[:, None, :, None]
-        y = _project_capped_simplex_td(y, cap)
+        y = _project_capped_simplex_td(y, cap, sums)
     Ax = fwd_all(x)
 
     eta = eta0
@@ -569,19 +608,19 @@ def _tol_core(w_all, start, end, feas, cost, step_scale: float, tol: float,
             tau = c.eta[:, None, None]
         # fwd(2x - x_prev) folded through linearity onto the cached applies
         y_c = _project_capped_simplex_td(
-            c.y + sig * (2.0 * c.Ax - c.Ax_prev), cap)
+            c.y + sig * (2.0 * c.Ax - c.Ax_prev), cap, sums)
         x_c = _project_simplex_masked(c.x - tau * adj_all(y_c), feas, mass)
         Ax_c = fwd_all(x_c)
         dx = x_c - c.x
         dy = y_c - c.y
-        dxsq = (dx * dx).sum(dim=(1, 2))
-        dysq = (dy * dy).sum(dim=(1, 2, 3))
+        dxsq = _lane_sum(dx * dx, sums)
+        dysq = _lane_sum(dy * dy, sums)
         if adaptive:
             if omega_on:
                 move = 0.5 * (c.omega * dxsq + dysq / c.omega)
             else:
                 move = 0.5 * (dxsq + dysq)
-            inter = (dy * (Ax_c - c.Ax)).sum(dim=(1, 2, 3)).abs()
+            inter = _lane_sum(dy * (Ax_c - c.Ax), sums).abs()
             eta_bar = torch.where(inter > 1e-20,
                                   move / torch.clamp_min(inter, 1e-20),
                                   torch.inf)
@@ -668,6 +707,7 @@ def _tol_core(w_all, start, end, feas, cost, step_scale: float, tol: float,
         for _ in range(min(check_every, max_iters - c.k)):
             attempt(c)
         check(c)
+        yield
         if bool(c.conv.all()):  # the one host read per check
             break
 
@@ -694,7 +734,7 @@ def _tol_core(w_all, start, end, feas, cost, step_scale: float, tol: float,
         x_p, y_p, x_pr = x_fin, y_fin, x_fin
         for _ in range(_POLISH_ITERS):
             y_p = _project_capped_simplex_td(
-                y_p + sig_p * fwd64(2.0 * x_p - x_pr), cap64)
+                y_p + sig_p * fwd64(2.0 * x_p - x_pr), cap64, sums)
             x_p, x_pr = _project_simplex_masked(
                 x_p - tau_p * adj64(y_p), feas, mass64), x_p
         p_p, d_p, r_p = _objectives(fwd64(x_p), y_p, adj64, cost_s, feas,
@@ -771,13 +811,14 @@ def _check_knobs(scaling: str, precision: str) -> None:
             f"precision must be one of {PRECISIONS}, got {precision!r}")
 
 
-def _device_arrays(batch: ProblemBatch, w_dt, dev):
-    """(weights, start, end, feas, cost) of a packed batch on ``dev``."""
-    return (torch.as_tensor(batch.weights(), dtype=w_dt).to(dev),
-            torch.from_numpy(batch.start).to(dev),
-            torch.from_numpy(batch.end).to(dev),
-            torch.from_numpy(batch.feas).to(dev),
-            torch.as_tensor(batch.cost, dtype=w_dt).to(dev))
+def _device_arrays(batch: ProblemBatch, w_dt, dev, lanes=slice(None)):
+    """(weights, start, end, feas, cost) of a packed batch's ``lanes`` on
+    ``dev``."""
+    return (torch.as_tensor(batch.weights()[lanes], dtype=w_dt).to(dev),
+            torch.from_numpy(batch.start[lanes]).to(dev),
+            torch.from_numpy(batch.end[lanes]).to(dev),
+            torch.from_numpy(batch.feas[lanes]).to(dev),
+            torch.as_tensor(batch.cost[lanes], dtype=w_dt).to(dev))
 
 
 def _tol_result(x_b, feas_b, t: Problem, primal, dual, rel, iters,
@@ -894,14 +935,103 @@ def solve_lp_many(problems, iters: int = 2000, step_scale: float = 0.9,
 
 # --- warm-started sweeps ---------------------------------------------------
 
+def _shard_devices(devices: int, dev: torch.device) -> list[torch.device]:
+    """The device of each of ``devices`` lane shards: the first ``devices``
+    visible cards (the reference's ``jax.devices()[:devices]``), or the CPU
+    once per shard where the caller asked for the CPU.  Raises
+    ``ValueError`` when fewer cards are visible: it never runs fewer
+    shards, nor moves to the CPU."""
+    if dev.type == "cpu":
+        return [dev] * devices
+    avail = torch.cuda.device_count()
+    if devices > avail:
+        raise ValueError(
+            f"devices={devices} exceeds the {avail} visible card(s): the "
+            f"sharded sweep pipeline places one lane shard per card")
+    return [torch.device("cuda", i) for i in range(devices)]
+
+
+def _pipeline_steps(batches, lanes, dev, it_dt, tol, iters, step_scale,
+                    operator, adaptive, restart, check_every, scaling,
+                    precision, omega):
+    """The warm-started chain over ``lanes`` of every group, on ``dev``, as
+    a generator of ``_tol_steps``' steps: every group's lanes copied there
+    at once, then solved in turn, each group warm-started from its
+    predecessor's final iterates, which stay on ``dev`` (in the iterate's
+    dtype, original coordinates).  Returns each group's outputs as numpy
+    arrays (x, primal, dual, rel, iters, restarts, conv, eta, omega) and the
+    last group's y."""
+    stacked = [torch.stack(parts) for parts in zip(
+        *(_device_arrays(bt, it_dt, dev, lanes) for bt in batches))]
+    outs = []
+    x_c = y_c = eta_c = om_c = None
+    for g in range(len(batches)):
+        (x_o, y_o, primal, dual, rel, it_b, rs_b, conv, eta_o,
+         om_o) = yield from _tol_steps(
+            *(a[g] for a in stacked), _f32(step_scale), _f32(tol),
+            max_iters=iters, check_every=check_every,
+            Tp=batches[0].Tp, operator=operator, adaptive=adaptive,
+            restart=restart, power_iters=_POWER_ITERS, scaling=scaling,
+            precision=precision, omega_on=omega, x0=x_c, y0=y_c,
+            eta_init=eta_c, omega_init=om_c)
+        # the carry crosses groups in original coordinates; each group
+        # re-scales by its own Ruiz factors on entry
+        x_c, y_c = x_o.to(it_dt), y_o.to(it_dt)
+        eta_c, om_c = eta_o.to(it_dt), om_o.to(it_dt)
+        outs.append((x_o.to(torch.float32), primal, dual, rel, it_b, rs_b,
+                     conv, eta_o.to(torch.float32), om_o.to(torch.float32)))
+    y_last = y_c.to(torch.float32).cpu().numpy()
+    return [[t.cpu().numpy() for t in out] for out in outs], y_last
+
+
+def _run_shards(steps, shards):
+    """Every (device, lanes) shard's ``steps(device, lanes)`` generator run
+    to its end, results in shard order.  The shards run interleaved from
+    this one host thread: each queues its next chunk on its own device in
+    turn, and only then is each chunk's host read made, so cards work at
+    once while the host launches (on the CPU the shards simply take turns)."""
+    gens = [steps(d, lanes) for d, lanes in shards]
+    results: list = [None] * len(gens)
+    running = list(range(len(gens)))
+    with torch.no_grad():
+        while running:
+            for i in list(running):
+                d = shards[i][0]
+                with (torch.cuda.device(d) if d.type == "cuda"
+                      else contextlib.nullcontext()):
+                    try:
+                        next(gens[i])
+                    except StopIteration as done:
+                        results[i] = done.value
+                        running.remove(i)
+    return results
+
+
 def _sweep_pipeline(groups, pad_to, tol, iters, step_scale, operator,
                     adaptive, restart, check_every, scaling, precision,
-                    omega, device):
-    """The sweep chain as one host call: every group packed to one common
-    shape and copied to the device at once, then solved in turn, each
-    group warm-started from its predecessor's final iterates, which stay
-    on the device (in the iterate's dtype, original coordinates).  Counts
-    one dispatch.  Only the last group's ``SolveStats`` carries a state."""
+                    omega, device, devices=None):
+    """The sweep chain as one host call (``_pipeline_steps``): every group
+    packed to one common shape, the state kept on the device.  Counts one
+    dispatch.  Only the last group's ``SolveStats`` carries a state.
+
+    ``devices=k`` splits every group's B lanes into k equal, contiguous
+    shards, shard i on the i-th visible card (the CPU where asked), each
+    running the whole chain on its own lanes (the reference's
+    ``shard_map`` over the lane axis: each shard's early exit stops on its
+    own; ``_run_shards``).  The results are gathered in lane order.  No
+    quantity of the tol core is reduced across lanes, converged lanes are
+    frozen, and every sum over a lane's elements goes through the lane-sum
+    kernel, whose order does not depend on the batch, so every lane's
+    result is the unsharded run's bit for bit: on the CPU, and on cards
+    with the ``pallas`` operator (checked on four H100s; ``cumsum`` and
+    ``dense`` run torch's segment sums and cuBLAS products there, which
+    are not checked at other batch sizes).  The operator form and the
+    padded shape are chosen once, from the whole group.  On cards the
+    sharded chain is at present slower than one card (four H100 80GB HBM3
+    at 700 W took 2.85x-6.97x the one-card LP time in three runs, PERF.md
+    section 6): the tol loop is bound by kernel launches, and this one host
+    thread issues every shard's; sharding pays only once a CUDA graph of
+    one tol chunk makes launches cheap (ROADMAP Queue 2, follow-up 1)."""
     sizes = {len(g) for g in groups}
     if len(sizes) != 1:
         raise ValueError(
@@ -910,36 +1040,41 @@ def _sweep_pipeline(groups, pad_to, tol, iters, step_scale, operator,
     _check_knobs(scaling, precision)
     dev = resolve_device(device)
     batches = [pack_problems(g, pad_to=pad_to) for g in groups]
+    B = batches[0].B
     operator = _resolve_operator(operator, batches[0])
+    if devices is None:
+        shards = [(dev, slice(0, B))]
+    else:
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1 or None, got {devices!r}")
+        if B % devices != 0:
+            raise ValueError(
+                f"pipeline sharding needs devices to divide the group "
+                f"size, got B={B}, devices={devices}")
+        per = B // devices
+        shards = [(d, slice(i * per, (i + 1) * per))
+                  for i, d in enumerate(_shard_devices(devices, dev))]
     it_dt = torch.float64 if precision == "f64" else torch.float32
-    stacked = [torch.stack(parts) for parts in zip(
-        *(_device_arrays(bt, it_dt, dev) for bt in batches))]
     _count_dispatch()
-    outs = []
-    x_c = y_c = eta_c = om_c = None
-    with torch.no_grad():
-        for g in range(len(batches)):
-            (x_o, y_o, primal, dual, rel, it_b, rs_b, conv, eta_o,
-             om_o) = _tol_core(
-                *(a[g] for a in stacked), _f32(step_scale), _f32(tol),
-                max_iters=iters, check_every=check_every,
-                Tp=batches[0].Tp, operator=operator, adaptive=adaptive,
-                restart=restart, power_iters=_POWER_ITERS, scaling=scaling,
-                precision=precision, omega_on=omega, x0=x_c, y0=y_c,
-                eta_init=eta_c, omega_init=om_c)
-            # the carry crosses groups in original coordinates; each group
-            # re-scales by its own Ruiz factors on entry
-            x_c, y_c = x_o.to(it_dt), y_o.to(it_dt)
-            eta_c, om_c = eta_o.to(it_dt), om_o.to(it_dt)
-            outs.append((x_o.to(torch.float32), primal, dual, rel, it_b,
-                         rs_b, conv, eta_o.to(torch.float32),
-                         om_o.to(torch.float32)))
-        y_last = y_c.to(torch.float32).cpu().numpy()
+
+    def steps(d, lanes):
+        return _pipeline_steps(
+            batches, lanes, d, it_dt, tol=tol, iters=iters,
+            step_scale=step_scale, operator=operator, adaptive=adaptive,
+            restart=restart, check_every=check_every, scaling=scaling,
+            precision=precision, omega=omega)
+
+    parts = _run_shards(steps, shards)
+    # gathered lane by lane, in shard order
+    outs = [[np.concatenate([p[0][g][k] for p in parts])
+             for k in range(len(parts[0][0][g]))]
+            for g in range(len(batches))]
+    y_last = np.concatenate([p[1] for p in parts])
     results: list[PDHGResult] = []
     stats: list[SolveStats] = []
     for g, (batch, out) in enumerate(zip(batches, outs)):
         xs, primals, duals, rels, iters_g, restarts_g, convs, etas, omegas \
-            = (t.cpu().numpy() for t in out)
+            = out
         for b, t in enumerate(batch.problems):
             results.append(_tol_result(
                 xs[b, : t.n, : t.m], batch.feas[b, : t.n, : t.m], t,
@@ -954,15 +1089,6 @@ def _sweep_pipeline(groups, pad_to, tol, iters, step_scale, operator,
             restarts=restarts_g.astype(np.int64), kkt=rels,
             converged=convs, tol=tol, state=state))
     return results, stats
-
-
-def _check_devices(devices: int | None) -> None:
-    """Raise for a pipeline sharded over more than one card: not ported."""
-    if devices is not None and devices > 1:
-        raise NotImplementedError(
-            f"devices={devices}: sharding the sweep pipeline over more than "
-            f"one card is not ported yet (ROADMAP Queue 1, 'multi-card "
-            f"pipeline sharding'); use devices=None or 1")
 
 
 def _sweep_impl(groups, tol: float = DEFAULT_TOL, iters: int = 4000,
@@ -983,8 +1109,9 @@ def _sweep_impl(groups, tol: float = DEFAULT_TOL, iters: int = 4000,
     a group whose size differs from its predecessor's cold-starts.
     ``pipeline=True`` runs the chain as one host call with the state kept
     on the device (``_sweep_pipeline``; equal group sizes and aligned
-    shapes); ``devices`` > 1 (sharding it over cards) raises
-    ``NotImplementedError``.  Returns ``(results, stats)``: the flat
+    shapes); ``devices=k`` shards its lanes over the first k visible cards
+    (k shards one after another on the CPU where ``device="cpu"``); k must
+    divide the group size.  Returns ``(results, stats)``: the flat
     per-instance results in group order and one ``SolveStats`` per group.
     """
     groups = [list(g) for g in groups]
@@ -996,7 +1123,6 @@ def _sweep_impl(groups, tol: float = DEFAULT_TOL, iters: int = 4000,
         pad_to = (max(t.n for t in trimmed), max(t.m for t in trimmed),
                   max(t.D for t in trimmed), max(t.T for t in trimmed))
     if pipeline:
-        _check_devices(devices)
         if not align_shapes:
             raise ValueError(
                 "pipeline=True requires align_shapes=True (every group "
@@ -1005,7 +1131,7 @@ def _sweep_impl(groups, tol: float = DEFAULT_TOL, iters: int = 4000,
             groups, pad_to, tol=tol, iters=iters, step_scale=step_scale,
             operator=operator, adaptive=adaptive, restart=restart,
             check_every=check_every, scaling=scaling, precision=precision,
-            omega=omega, device=device)
+            omega=omega, device=device, devices=devices)
     results: list[PDHGResult] = []
     stats: list[SolveStats] = []
     state: PDHGState | None = None

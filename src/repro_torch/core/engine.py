@@ -26,10 +26,10 @@ paper's §VI protocol over a fleet of instances on one device:
 Ported from ``repro.core.engine``.  Constrained instances are lowered
 (``core.constraints``) before packing, and ``place`` expands its solutions
 back to the original task rows.  ``solve_scenarios`` solves a same-shape
-scenario group (``repro_torch.stochastic``) in one dispatch.  What this port
-does not have yet raises ``NotImplementedError`` naming the ROADMAP entry
-that brings it: a sweep pipeline sharded over more than one card
-(``SweepConfig(devices>1)``, "multi-card pipeline sharding").
+scenario group (``repro_torch.stochastic``) in one dispatch.
+``SweepConfig(devices=k)`` shards the sweep pipeline's lanes over the first
+k visible cards (k shards in turn on the CPU session); placement stays on
+the session's device.
 
 ``device`` (None = the CUDA card) is where the LP solve runs, where the
 ``kernel`` backend scores placements and where the compiled stepper keeps
@@ -47,7 +47,7 @@ import numpy as np
 from ..device import resolve_device
 from .api import ALGORITHMS
 from .batch import (DEFAULT_CHECK_EVERY, OPERATORS, PRECISIONS, SCALINGS,
-                    ProblemBatch, _sweep_impl, _check_devices, pack_problems,
+                    ProblemBatch, _sweep_impl, pack_problems,
                     solve_lp_many)
 from .constraints import expand_solution, lower_constraints
 from .lp_pdhg import PDHGResult, PDHGState, SolveStats
@@ -193,11 +193,20 @@ class SweepConfig:
     instances as a grid-adjacent sweep chained in consecutive groups of k
     (None = off; when k does not divide B the trailing group is smaller
     and cold-starts).  pipeline=True runs the whole chain as one host call
-    with the state kept on the device (k must divide B).  ``devices``
-    needs ``pipeline``; None or 1 runs on the session's device, and more
-    than one card raises ``NotImplementedError`` (ROADMAP: multi-card
-    pipeline sharding).  warm_start excludes max_buckets > 1 and
-    shard_size: the chain packs every group to one common shape.
+    with the state kept on the device (k must divide B).  ``devices=d``
+    needs ``pipeline`` and shards each group's lanes into d equal shards,
+    shard i on the i-th visible card (in turn on the CPU when the session
+    runs there); d must divide k, and more shards than visible cards raise
+    ``ValueError`` at dispatch (the session's device is known only then).
+    Every lane's result is the unsharded chain's bit for bit (on cards with
+    the ``pallas`` operator).  On cards it is at present slower than one
+    card (four H100 80GB HBM3 at 700 W took 2.85x-6.97x the one-card LP
+    time in three runs): the tol loop is bound by kernel launches and one
+    host thread issues every shard's, so it pays only once a CUDA graph of
+    a tol chunk makes launches cheap (ROADMAP Queue 2, follow-up 1).  None
+    runs the chain on the session's device.  warm_start excludes
+    max_buckets > 1 and shard_size: the chain packs every group to one
+    common shape.
 
     >>> SweepConfig(warm_start=2, max_buckets=3)
     Traceback (most recent call last):
@@ -252,7 +261,6 @@ class SweepConfig:
         if self.devices is not None and self.devices < 1:
             raise ValueError(
                 f"devices must be >= 1 or None, got {self.devices!r}")
-        _check_devices(self.devices)
 
 
 # --- shape-bucketed packing planner ----------------------------------------

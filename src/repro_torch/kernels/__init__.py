@@ -13,13 +13,16 @@ host-facing wrappers.
                    (``csrc/wkv.cu``), as the ``repro_torch::wkv`` operator.
 * ``scan``       — the RG-LRU linear scan, forward and backward
                    (``csrc/scan.cu``), as ``repro_torch::linear_scan``.
+* ``lane_sum``   — the LP's sums over one lane's elements, in an order that
+                   does not depend on the batch (``csrc/lane_sum.cu``).
 
 ``ref`` holds the plain versions, ``ops`` the host-facing API with the
 reference's signatures, ``build`` the nvcc build.  ``launch_counts`` reads
-each wrapper's launch count and ``reset_launch_counts`` sets them to 0.
+each wrapper's launch count and ``reset_launch_counts`` sets them to 0
+(and the congestion kernel's per-card counts, ``congestion.launches_by_card``).
 """
 
-from . import ops, ref
+from . import congestion, lane_sum, ops, ref
 from .congestion import congestion_many
 from .fit import fit_scores, fit_scores_many
 from .place_step import sub_phase, two_phase_walk
@@ -39,6 +42,7 @@ WRAPPERS = {
     "wkv_backward": wkv_backward_launch,
     "linear_scan": scan_forward,
     "linear_scan_backward": scan_backward,
+    "lane_sum": lane_sum.lane_sum,
 }
 
 
@@ -50,3 +54,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    congestion._BY_CARD.clear()

@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "nvcc_path"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("congestion", "fit", "place_step", "wkv", "scan")
+SOURCES = ("congestion", "fit", "place_step", "wkv", "scan", "lane_sum")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
@@ -39,6 +39,7 @@ EXTRA_FLAGS = {"place_step": ("-fmad=false",)}
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_double
+_L = ctypes.c_longlong
 # argtypes of each library's C entry points (every pointer and the stream
 # as c_void_p, so ctypes never narrows them to 32 bits)
 SIGNATURES = {
@@ -71,6 +72,9 @@ SIGNATURES = {
         "linear_scan_launch": (_C, _C, _C, _I, _I, _I, _C),
         "linear_scan_backward_launch": (_C,) * 5 + (_I,) * 3 + (_C,),
         "linear_scan_plan": (_I,) * 3 + (ctypes.POINTER(_I),),
+    },
+    "lane_sum": {
+        "lane_sum_launch": (_C, _C) + (_L,) * 5 + (_I, _C),
     },
 }
 

@@ -13,8 +13,10 @@ One kernel, two entries:
 
 For CUDA tensors each entry launches the hand-written kernel (built at
 first use) and adds one to ``congestion_many.launches``, the kernel's one
-launch counter; for CPU tensors it returns the plain version
-(``ref.congestion_many_ref``, ``ref.congestion_lp_ref``).  It never falls
+launch counter, and to the launching card's count in ``launches_by_card()``
+(the sharded sweep pipeline launches on several cards); for CPU tensors it
+returns the plain version (``ref.congestion_many_ref``,
+``ref.congestion_lp_ref``).  It never falls
 back: a CUDA build or launch that fails raises.  Any number of columns
 (m * D, or K) is one launch: past ``PART_FLOATS`` the kernel tiles the
 column axis (``column_tiles``).
@@ -22,12 +24,14 @@ column axis (``column_tiles``).
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from . import ref
 
 __all__ = ["congestion_many", "congestion", "congestion_lp", "launch_plan",
-           "column_tiles", "PART_FLOATS"]
+           "column_tiles", "launches_by_card", "PART_FLOATS"]
 
 # partial sums one CTA holds (csrc/congestion.cu's kPartFloats): a column
 # tile is at most PART_FLOATS // t_tile columns wide
@@ -74,6 +78,15 @@ def _on_card(*tensors) -> bool:
     return True
 
 
+_BY_CARD: collections.Counter = collections.Counter()
+
+
+def launches_by_card() -> dict[int, int]:
+    """Launches of either entry per card index since the last
+    ``kernels.reset_launch_counts()``."""
+    return dict(_BY_CARD)
+
+
 def _launch(entry, *args, dev):
     from . import build
 
@@ -83,6 +96,7 @@ def _launch(entry, *args, dev):
     if err != 0:
         raise RuntimeError(f"congestion kernel launch failed: CUDA error {err}")
     congestion_many.launches += 1
+    _BY_CARD[dev.index] += 1
 
 
 def congestion_many(start: torch.Tensor, end: torch.Tensor, w: torch.Tensor,

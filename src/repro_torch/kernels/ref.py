@@ -8,7 +8,9 @@ reference compiles its time loops (``repro.models.rwkv`` ``lax.scan``,
 ``jax.grad``; these are the port's own loops over time and their reverse.  The
 kernel wrappers take these for CPU tensors; the tests and ``chip_smoke.py``
 hold the kernels against them.  Like the kernels, they are generic over the
-trailing feature dimension (D or K).
+trailing feature dimension (D or K).  ``lane_sum_ref`` is torch's own sum;
+``lane_sum_ordered`` adds in the lane-sum kernel's order, which torch's sum
+on a card does not keep.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ __all__ = ["congestion_ref", "congestion_many_ref", "congestion_lp_ref",
            "fit_scores_ref", "fit_scores_many_ref", "span_mask",
            "sub_phase_ref", "two_phase_ref", "wkv_step_ref", "wkv_ref",
            "wkv_backward_ref", "wkv_chunked_ref", "wkv_chunked_backward_ref",
-           "linear_scan_ref", "linear_scan_backward_ref"]
+           "linear_scan_ref", "linear_scan_backward_ref", "lane_view",
+           "lane_sum_ref", "lane_sum_ordered"]
 
 _EPS = 1e-7  # the placement engines' feasibility slack
 
@@ -566,3 +569,63 @@ def linear_scan_backward_ref(a, h, gh):
         ga[:, t] = dh * h[:, t - 1] if t > 0 else dh * 0.0
         carry = a[:, t] * dh
     return ga, gb
+
+
+def lane_view(shape, dims) -> tuple[int, int, int, int]:
+    """(B, R1, M, R2) such that summing ``dims`` of a contiguous tensor of
+    ``shape`` is summing axes 1 and 3 of its (B, R1, M, R2) view: ``dims``
+    is every axis but the first, or (1, 3) of a 4-axis shape (the two sums
+    the LP makes over a lane's elements).  Raises ValueError otherwise."""
+    dims = tuple(sorted(int(d) % len(shape) for d in dims))
+    if len(shape) >= 2 and dims == tuple(range(1, len(shape))):
+        rest = 1
+        for s in shape[1:]:
+            rest *= int(s)
+        return int(shape[0]), rest, 1, 1
+    if len(shape) == 4 and dims == (1, 3):
+        return tuple(int(s) for s in shape)
+    raise ValueError(
+        f"lane sums take every axis but the first, or axes (1, 3) of a "
+        f"4-axis tensor; got dims {dims} of shape {tuple(shape)}")
+
+
+def lane_sum_ref(x, dims):
+    """``x.sum(dim=dims, keepdim=True)`` over one of ``lane_view``'s axis
+    sets: the plain version of the lane-sum kernel."""
+    lane_view(x.shape, dims)
+    return x.sum(dim=tuple(dims), keepdim=True)
+
+
+def _ordered_rows(v, chunk: int, threads: int = 256):
+    """(P,) sums of the (P, R) rows of v in the kernel's order: chunks of
+    ``chunk``; in each, thread t adds elements t, t + threads, ... from +0;
+    a butterfly over each warp's 32 sums, then over the warps' sums padded
+    with zeros to 32; the chunk sums of a row summed again the same way."""
+    P, R = v.shape
+    chunks = max(1, -(-R // chunk))
+    v = torch.nn.functional.pad(v, (0, chunks * chunk - R))
+    v = v.reshape(P, chunks, chunk // threads, threads)
+    acc = torch.zeros((P, chunks, threads), dtype=v.dtype, device=v.device)
+    for i in range(chunk // threads):
+        acc = acc + v[:, :, i]
+
+    def butterfly(a):  # lane 0's value of a shuffle-xor tree over 32
+        for s in (16, 8, 4, 2, 1):
+            a = a[..., :s] + a[..., s:2 * s]
+        return a[..., 0]
+
+    warps = butterfly(acc.reshape(P, chunks, threads // 32, 32))
+    part = butterfly(torch.nn.functional.pad(warps, (0, 32 - threads // 32)))
+    return part[:, 0] if chunks == 1 else _ordered_rows(part, chunk, threads)
+
+
+def lane_sum_ordered(x, dims, chunk: int):
+    """``lane_sum_ref`` with the lane-sum kernel's order of adds (chunks of
+    ``chunk`` elements an output): bit-equal to the kernel, and for a given
+    lane the same in a batch of any size."""
+    B, R1, M, R2 = lane_view(x.shape, dims)
+    rows = x.reshape(B, R1, M, R2).permute(0, 2, 1, 3).reshape(B * M,
+                                                                R1 * R2)
+    keep = [1 if a in {int(d) % x.dim() for d in dims} else s
+            for a, s in enumerate(x.shape)]
+    return _ordered_rows(rows, chunk).reshape(keep)

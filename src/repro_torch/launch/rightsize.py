@@ -137,9 +137,12 @@ def _shared_flags() -> argparse.ArgumentParser:
                         "call, one dispatch (SweepConfig.pipeline; "
                         "requires --warm-start)")
     p.add_argument("--devices", type=int, default=None,
-                   help="cards to shard the pipelined sweep's batch "
-                        "dim over (SweepConfig.devices; more than one is "
-                        "not ported and raises NotImplementedError)")
+                   help="shard the pipelined sweep's batch dim across "
+                        "this many visible cards, or run that many shards "
+                        "in turn under --device cpu (SweepConfig.devices); "
+                        "on cards this is at present slower than one card "
+                        "(one host thread launches for every card, and the "
+                        "tol loop is bound by its launches)")
     return p
 
 
@@ -264,9 +267,12 @@ def cmd_fleet(args):
     t = result.timings
     print(f"== fleet scenarios ({args.scenarios} demand scalings, one "
           f"FleetEngine session) ==")
+    # a warm-started sweep packs no buckets (plan None): its groups share
+    # one padded shape
+    shape = ("one warm-started sweep chain" if result.plan is None
+             else f"{result.plan.n_buckets} shape bucket(s)")
     print(f"   pack {t['pack_s']:.2f}s + lp {t['lp_s']:.1f}s + "
-          f"placement {t['place_s']:.1f}s over "
-          f"{result.plan.n_buckets} shape bucket(s)")
+          f"placement {t['place_s']:.1f}s over {shape}")
     tel = t["placement"]
     line = (f"   placement engine: {tel['engine']} "
             f"({tel['calls']} stepper calls")

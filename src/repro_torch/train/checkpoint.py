@@ -20,9 +20,12 @@ cross the packages through ``convert``, not through checkpoints.
 A tree is a nested dict, tuple or list whose leaves are tensors, and may
 hold a ``models.Model``, whose leaves are its named parameters.
 ``restore`` returns a new tree on a device of the caller's choosing (the
-card by default; on one card, a restore onto another device is the
-reference's elastic restore, whose ``shardings=`` is not ported); ``load``
-reads into the tensors of a live tree in place.
+card by default); with ``shardings`` it places each leaf onto a
+``DeviceMesh`` that may differ from the one it was saved from, the
+reference's elastic restore.  ``load`` reads into the tensors of a live
+tree in place.  ``save`` and ``Checkpointer`` take ``DTensor`` leaves:
+every rank gathers each one (``full_tensor``, a collective) and rank 0
+writes, so the file holds whole tensors whatever mesh they were sharded on.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ import struct
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..device import resolve_device
 from ..models import Model
@@ -79,13 +85,38 @@ def _bytes(t: torch.Tensor):
     return t.detach().contiguous().reshape(-1).view(torch.uint8).numpy()
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a leaf: a ``DTensor`` is gathered (a collective
+    every rank of its mesh makes, leaf by leaf in the same order)."""
+    t = t.detach()
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(path: str, tree, step: int) -> str:
     """Atomic save: write tmp, fsync, rename.  Leaves on a card are copied
-    to the host one at a time."""
-    os.makedirs(path, exist_ok=True)
-    fname = os.path.join(path, f"step_{step}.ckpt")
-    tmp = fname + ".tmp"
+    to the host one at a time.  ``DTensor`` leaves are gathered on every
+    rank and rank 0 writes; every rank returns once the file is in place."""
     leaves = list(_leaves(tree))
+    fname = os.path.join(path, f"step_{step}.ckpt")
+    if _writer():
+        _write(path, fname, leaves, step)
+    else:
+        for _key, t in leaves:
+            _whole(t)  # the writer's gathers
+    if dist.is_initialized() and any(isinstance(t, DTensor)
+                                     for _key, t in leaves):
+        dist.barrier()
+    return fname
+
+
+def _write(path: str, fname: str, leaves: list, step: int) -> None:
+    os.makedirs(path, exist_ok=True)
+    tmp = fname + ".tmp"
     entries, off = {}, 0
     for key, t in leaves:
         nbytes = t.numel() * t.element_size()
@@ -97,11 +128,10 @@ def save(path: str, tree, step: int) -> str:
     with open(tmp, "wb") as f:
         f.write(_MAGIC + struct.pack("<Q", len(header)) + header)
         for _key, t in leaves:
-            f.write(_bytes(t.cpu()))
+            f.write(_bytes(_whole(t).cpu()))
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, fname)
-    return fname
 
 
 def latest_step(path: str) -> int | None:
@@ -142,11 +172,83 @@ def _read_into(path: str, tree, step: int | None) -> int:
     return header["step"]
 
 
-def restore(path: str, like, step: int | None = None, device=None):
+def _is_spec(s) -> bool:
+    return (isinstance(s, tuple) and len(s) == 2
+            and isinstance(s[0], DeviceMesh))
+
+
+def _specs(like, shardings, prefix: str = ""):
+    """(path, None or (mesh, placements)) of every leaf of ``like``, read
+    from the matching tree ``shardings``; ``ValueError`` where they do not
+    match."""
+    if shardings is None or _is_spec(shardings):
+        if isinstance(like, Model):
+            raise ValueError(
+                f"shardings for {prefix or 'the tree'!r}: a Model's leaves "
+                f"take no shardings; restore dict(model.named_parameters())")
+        for key, _t in _leaves(like, prefix):
+            yield key, shardings
+        return
+    if isinstance(like, dict) and isinstance(shardings, dict) \
+            and shardings.keys() == like.keys():
+        for k, v in like.items():
+            yield from _specs(v, shardings[k], f"{prefix}{k}/")
+    elif isinstance(like, (tuple, list)) \
+            and isinstance(shardings, (tuple, list)) \
+            and len(shardings) == len(like):
+        for i, v in enumerate(like):
+            yield from _specs(v, shardings[i], f"{prefix}{i}/")
+    else:
+        raise ValueError(
+            f"shardings do not match the tree at {prefix or 'its root'!r}: "
+            f"a {type(shardings).__name__} against a "
+            f"{type(like).__name__}")
+
+
+def _placed(tree, specs: dict, prefix: str = ""):
+    """``tree`` with each leaf that has a (mesh, placements) spec
+    distributed onto its mesh."""
+    if isinstance(tree, Model):
+        return tree  # its leaves take no spec (``_specs``)
+    if isinstance(tree, dict):
+        return {k: _placed(v, specs, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_placed(v, specs, f"{prefix}{i}/")
+                          for i, v in enumerate(tree))
+    spec = specs[prefix.rstrip("/")]
+    if spec is None:
+        return tree
+    mesh, placements = spec
+    return distribute_tensor(tree, mesh, list(placements))
+
+
+def restore(path: str, like, step: int | None = None, device=None,
+            shardings=None):
     """Restore into a new tree of the structure of ``like`` on ``device``
-    (None = the CUDA card).  Returns (tree, step)."""
-    tree = _like(like, resolve_device(device))
-    return tree, _read_into(path, tree, step)
+    (None = the CUDA card).  Returns (tree, step).
+
+    ``shardings`` is a tree matching ``like`` (a ``None`` or a
+    ``(DeviceMesh, placements)`` pair at a leaf, or in place of a whole
+    subtree) that re-places leaves onto a possibly different mesh, the
+    elastic-rescale path: a leaf with a pair comes back as a ``DTensor``
+    from ``distribute_tensor`` (every rank of the mesh reads the file and
+    calls it), a ``None`` leaf on ``device``.  A tree that does not match
+    raises ``ValueError``."""
+    dev = resolve_device(device)
+    if shardings is None:
+        tree = _like(like, dev)
+        return tree, _read_into(path, tree, step)
+    specs = dict(_specs(like, shardings))
+    tree = _like(like, dev)
+    for key, t in _leaves(tree):
+        spec = specs[key]
+        if spec is not None and t.device.type != spec[0].device_type:
+            raise ValueError(
+                f"leaf {key}: a mesh of {spec[0].device_type} devices "
+                f"cannot take a leaf restored to {t.device}; pass "
+                f"device={spec[0].device_type!r}")
+    got = _read_into(path, tree, step)
+    return _placed(tree, specs), got
 
 
 def load(path: str, tree, step: int | None = None) -> int:
@@ -169,13 +271,16 @@ class Checkpointer:
         self._pending: cf.Future | None = None
 
     def save_async(self, tree, step: int):
+        """Snapshot ``tree`` on this thread and commit it on the worker.
+        ``DTensor`` leaves are gathered here on every rank (a collective);
+        only rank 0 commits."""
         self.wait()  # one in flight at a time
         t0 = time.perf_counter()
-        host = {k: t.detach().to("cpu", copy=True)
-                for k, t in _leaves(tree)}
+        host = {k: _whole(t).to("cpu", copy=True) for k, t in _leaves(tree)}
         snapshot_s = time.perf_counter() - t0
-        self._pending = self._pool.submit(self._commit, host, step,
-                                          snapshot_s)
+        if _writer():
+            self._pending = self._pool.submit(self._commit, host, step,
+                                              snapshot_s)
 
     def _commit(self, host: dict, step: int, snapshot_s: float):
         t0 = time.perf_counter()

@@ -8,9 +8,13 @@ to blocks of 256 and quantized per block to int8 with a float32 scale
 float32, so compression error accumulates to zero instead of biasing the
 update (Karimireddy et al., 2019).
 
-``compress_decompress`` is the numerics of one round trip.  The explicit
-collective, ``compressed_psum``, is an all-gather over a mesh axis of more
-than one card, which the port does not have yet: it raises.
+``compress_decompress`` is the numerics of one round trip.
+``compressed_psum`` is the explicit collective over one named dimension of
+the ambient mesh (``sharding.ctx.use_mesh``): every participant all-gathers
+the others' int8 blocks and float32 scales (about 1 byte an element on the
+wire, against 4 for a float32 all-reduce) and sums ``q * s`` over them in
+rank order, in float32.  Its process group is the mesh dimension's: NCCL on
+the cards, gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -54,11 +58,48 @@ def compress_decompress(g, err):
 
 
 def compressed_psum(g, err, axis_name: str):
-    """The quantized all-reduce over a mesh axis: needs more than one
-    card."""
-    raise NotImplementedError(
-        "compressed_psum is an all-gather across cards: multi-card "
-        "gradient compression is not ported (one card only)")
+    """Quantized all-reduce of ``g`` over the mesh dimension ``axis_name``
+    with error feedback: returns (the sum over participants in g's dtype,
+    this participant's new float32 residual).
+
+    The group is that dimension of the ambient mesh
+    (``sharding.ctx.current_mesh()``); without a mesh, or for a name the
+    mesh lacks, it raises ``ValueError``.  The int8 blocks and scales are
+    all-gathered as their dim-0 concatenation over the group's ranks, and
+    ``sum_p q_p * s_p`` is taken in rank order in float32 (the reference's
+    ``einsum("pbk,pbo->bk")``)."""
+    import torch.distributed as dist
+
+    from ..sharding.ctx import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(
+            "compressed_psum needs a mesh: call it under "
+            "sharding.ctx.use_mesh(mesh) with a DeviceMesh that has a "
+            f"{axis_name!r} dimension")
+    names = mesh.mesh_dim_names or ()
+    if axis_name not in names:
+        raise ValueError(
+            f"the mesh has no dimension {axis_name!r} (dimensions {names})")
+    group = mesh.get_group(axis_name)
+    corrected = g.float() + err
+    q, scale, n = quantize_int8(corrected)
+    new_err = corrected - dequantize_int8(q, scale, n, g.shape)
+    world = dist.get_world_size(group)
+    blocks = q.shape[0]
+    q_all = torch.empty((world * blocks, _BLOCK), dtype=torch.int8,
+                        device=q.device)
+    s_all = torch.empty((world * blocks, 1), dtype=torch.float32,
+                        device=q.device)
+    dist.all_gather_into_tensor(q_all, q, group=group)
+    dist.all_gather_into_tensor(s_all, scale, group=group)
+    summed = q_all[:blocks].float() * s_all[:blocks]
+    for p in range(1, world):
+        rows = slice(p * blocks, (p + 1) * blocks)
+        summed = summed + q_all[rows].float() * s_all[rows]
+    deq = summed.reshape(-1)[:n].reshape(g.shape)
+    return deq.to(g.dtype), new_err
 
 
 def init_error_state(params: dict) -> dict:

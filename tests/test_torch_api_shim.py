@@ -31,6 +31,8 @@ from repro.workload import SyntheticSpec, sweep_specs, synthetic_batch
 from repro_torch.convert import problem_from_arrays
 from repro_torch.core import evaluate_many
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 LB_RTOL = 1e-4
 COST_RTOL = 1e-5
 TOL = 5e-3

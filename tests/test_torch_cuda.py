@@ -54,7 +54,12 @@ the launch plan equal to the plan rule's transcription
 (``tests/_torch_scan_tiles.py``) and the path's blocks resident at once,
 the model's decay gradients through the chunked backward within 1e-4 of
 each one's max |value| of the CPU's where half the decays underflow, and
-the recurrent smoke models launching them.
+the recurrent smoke models launching them.  The lane-sum kernel
+(``lane_sum.cu``) bit-equal to ``ref.lane_sum_ordered`` (its order of adds)
+in float32 and float64, one launch a call (two past one chunk), a lane alone
+bit-equal to the same lane in a batch, and within the ordered sum's bound
+plus torch's own sum's of torch's sum; the sharded sweep pipeline on one card
+(``devices=1``) bit-equal lane for lane to the unsharded run.
 """
 
 import numpy as np
@@ -63,6 +68,7 @@ import torch
 
 from repro_torch.kernels import congestion as cong
 from repro_torch.kernels import fit, ref
+from repro_torch.kernels import lane_sum as klane
 from repro_torch.kernels import place_step as kstep
 from _torch_stepper_inputs import sub_phase_inputs as _sub_phase_inputs
 from _torch_stepper_inputs import walk_inputs as _walk_inputs
@@ -1066,3 +1072,47 @@ def test_recurrent_smoke_goes_through_the_kernels(dev, arch):
     assert kernels.launch_counts()[name] > 0
     train_card_vs_cpu(arch, dev)
     assert kernels.launch_counts()[name + "_backward"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,dims", [
+    ((16, 24, 10, 5), (1, 3)), ((16, 1000, 10), (1, 2)),
+    ((4, 24, 10, 5), (1, 2, 3)), ((1, 1, 1, 1), (1, 3)), ((3, 7), (1,)),
+    ((2, 997, 14, 3), (1, 3)), ((3, 40000), (1,))])
+def test_lane_sum_matches_its_order(dev, shape, dims, dtype):
+    g = torch.Generator().manual_seed(len(shape) + shape[-1])
+    x = torch.randn(shape, generator=g, dtype=dtype).to(dev)
+    B, R1, M, R2 = ref.lane_view(shape, dims)
+    before = klane.lane_sum.launches
+    got = klane.lane_sum(x, dims)
+    torch.cuda.synchronize()
+    assert klane.lane_sum.launches == before + (1 if R1 * R2 <= klane.CHUNK
+                                                else 2)
+    assert torch.equal(got, ref.lane_sum_ordered(x, dims, klane.CHUNK))
+    for b in (0, shape[0] - 1):
+        assert torch.equal(klane.lane_sum(x[b:b + 1].clone(), dims),
+                           got[b:b + 1])
+    # both orders within depth * eps * sum |x| of the exact sum; torch's
+    # depth is taken as the kernel's
+    depth = klane.CHUNK // 256 + 10 + 2 * 10
+    slack = 2 * depth * torch.finfo(dtype).eps * x.abs().double().sum(
+        dim=dims, keepdim=True)
+    assert bool(((got.double() - x.sum(dim=dims, keepdim=True).double())
+                 .abs() <= slack).all())
+
+
+def test_sharded_sweep_on_one_card_is_the_pipelined_run(dev):
+    from repro_torch.core import FleetEngine, SolverConfig, SweepConfig
+    from repro_torch.workload import SyntheticSpec, sweep_specs, synthetic_batch
+
+    grid = synthetic_batch(sweep_specs(SyntheticSpec(n=60, m=4, D=3, T=12),
+                                       seeds=2, n=(40, 50)))
+    solver = SolverConfig(tol=5e-3, iters=4000, operator="pallas")
+    runs = [FleetEngine(solver=solver, device=dev, sweep=SweepConfig(
+        warm_start=2, pipeline=True, devices=d)).evaluate(grid)
+        for d in (None, 1)]
+    for a, b in zip(runs[0].lp_results, runs[1].lp_results):
+        assert (a.iters, a.restarts, a.converged) == (b.iters, b.restarts,
+                                                      b.converged)
+        assert (a.objective, a.lower_bound) == (b.objective, b.lower_bound)
+        assert np.array_equal(a.x, b.x)

@@ -38,6 +38,8 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import (fake_world, make_host_mesh,
                                      make_production_mesh)
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SEQ, BATCH = 64, 32
 CELLS = [("qwen2.5-3b", "train"), ("olmoe-1b-7b", "train"),

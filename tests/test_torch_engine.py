@@ -28,6 +28,8 @@ from repro_torch.core import (ALGORITHMS, FleetEngine, PlacementConfig,
 from repro_torch.workload import (SyntheticSpec, sweep_specs,
                                   synthetic_batch, synthetic_instance)
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 GOLDEN = pathlib.Path(__file__).resolve().parent.parent \
     / "results" / "golden" / "evaluate_many.json"
 LB_REL = 1e-4
@@ -140,9 +142,11 @@ def test_unported_options_raise():
     assert SolverConfig(tol=5e-3).tol == 5e-3
     assert PlacementConfig(engine="compiled").engine == "compiled"
     assert SweepConfig(warm_start=2, pipeline=True, devices=1).devices == 1
-    with pytest.raises(NotImplementedError,
-                       match="multi-card pipeline sharding"):
-        SweepConfig(warm_start=2, pipeline=True, devices=2)
+    # the sharded pipeline is ported: a config of two shards is valid, and
+    # the shard count is checked against the visible cards at dispatch
+    assert SweepConfig(warm_start=2, pipeline=True, devices=2).devices == 2
+    with pytest.raises(ValueError, match="requires pipeline=True"):
+        SweepConfig(warm_start=2, devices=2)
     eng = FleetEngine(device="cpu")
     fleet = _small_fleet()
     d0 = dispatch_count()

@@ -8,6 +8,7 @@ prompt, so the ring buffers wrap in prefill and in decode."""
 import pytest
 
 from _torch_lm import WINDOW, check_arch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["gemma2-9b", "gemma3-1b", "granite-34b", "qwen2.5-3b",
          "qwen2-vl-2b"]

@@ -9,6 +9,7 @@ below its 12-token prompt."""
 import pytest
 
 from _torch_lm import WINDOW, check_arch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["kimi-k2-1t-a32b", "olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-7b",
          "whisper-small"]

@@ -27,6 +27,8 @@ from _torch_lm import BF16_ATOL, WINDOW, check_arch_bf16
 from repro.models import attention as r_attn
 from repro_torch.models import attention as t_attn
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ARCHS = [("gemma2-9b", WINDOW), ("olmoe-1b-7b", None)]
 ATTN_SHAPES = [(1, 9, 2, 2), (2, 64, 4, 2)]   # B, S, H, KV
 # the share of bf16 outputs allowed to differ from the reference's: read 0

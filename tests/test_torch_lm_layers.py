@@ -32,6 +32,8 @@ from repro_torch.models import rglru as t_rglru
 from repro_torch.models import rwkv as t_rwkv
 from repro_torch.models.model import _embed_tokens as t_embed_tokens
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _rng(seed=0):
     return np.random.default_rng(seed)

@@ -28,6 +28,8 @@ from repro_torch.models import (build_segments, decode_step,
                                 torch_dtype)
 from repro_torch.models.model import _run_encoder
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 PARITY_ATOL = 5e-3
 
 

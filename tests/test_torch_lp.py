@@ -16,6 +16,8 @@ from repro_torch.convert import problem_from_arrays, state_from_numpy
 from repro_torch.core import batch as tbatch
 from repro_torch.core import solve_lp_pdhg
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REL = 1e-4
 
 

@@ -29,6 +29,8 @@ from repro_torch.core import FleetEngine, PlacementConfig, SolverConfig
 from repro_torch.core import place_many
 from repro_torch.core import place_step as t_place_step
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 CASES = [(fit, filling) for fit in ("first", "similarity")
          for filling in (False, True)]
 

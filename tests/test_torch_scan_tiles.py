@@ -24,6 +24,8 @@ import torch
 import _torch_scan_tiles as tiles
 from repro_torch.kernels import ref
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 SMS = 132  # the H100's SMs
 RAGGED = [(1, 1, 1), (2, 7, 300), (1, 65, 33), (3, 300, 4098),
           (4, 4100, 4096)]

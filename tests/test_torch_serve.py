@@ -45,6 +45,8 @@ import repro_torch.stochastic as PST
 from repro.core.checker import check_plan as ref_check_plan
 from repro_torch.core import check_plan
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 PKGS = {"ref": JS, "port": PS}
 CORES = {"ref": J, "port": P}
 WALL_KEYS = {"wall_s", "requests_per_s", "p50_replan_s", "p99_replan_s"}

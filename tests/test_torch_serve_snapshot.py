@@ -27,6 +27,8 @@ import repro.serve as JS
 import repro_torch.core as P
 import repro_torch.serve as PS
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 PKGS = {"ref": JS, "port": PS}
 SPEC = dict(fleets=2, requests=24, n0=12, m=3, seed=0)
 PUSH = 4

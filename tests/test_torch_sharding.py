@@ -35,6 +35,8 @@ from repro_torch.models import Model, init_decode_state
 from repro_torch.sharding import (batch_specs, decode_state_specs, named,
                                   param_specs, tree_named)
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 

@@ -49,6 +49,8 @@ from repro_torch.core import (FleetEngine, PackPlan, SolverConfig,
 from repro_torch.core import batch as tbatch
 from repro_torch.core.lp_pdhg import merge_stats
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = 5e-3
 CAP = 4000
 REL_F64 = 1e-6
@@ -315,12 +317,11 @@ def test_config_errors(small, sweep):
         SweepConfig(warm_start=2, shard_size=4)
     with pytest.raises(ValueError, match="positive group size"):
         SweepConfig(warm_start=0)
-    with pytest.raises(NotImplementedError,
-                       match="multi-card pipeline sharding"):
-        SweepConfig(warm_start=2, pipeline=True, devices=4)
-    with pytest.raises(NotImplementedError,
-                       match="multi-card pipeline sharding"):
-        tbatch._sweep_impl([tgrid[:2]], pipeline=True, devices=2,
+    # sharding over devices is checked at dispatch, where the session's
+    # device is known: the group size must divide
+    assert SweepConfig(warm_start=2, pipeline=True, devices=4).devices == 4
+    with pytest.raises(ValueError, match="divide the group size"):
+        tbatch._sweep_impl([tgrid[:2]], pipeline=True, devices=4,
                            device="cpu")
     with pytest.raises(ValueError, match="tolerance-stopped"):
         FleetEngine(sweep=SweepConfig(warm_start=2), device="cpu")

@@ -57,6 +57,8 @@ from repro.workload import SyntheticSpec, synthetic_instance
 from repro_torch.convert import problem_from_arrays
 from repro_torch.core import batch as tbatch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = 5e-3
 CAP = 4000
 SEEDS = (10, 11, 12, 13)

@@ -36,6 +36,8 @@ from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
 from repro_torch.train.fault import (FaultInjector, LoopConfig,
                                      run_with_restarts, train_loop)
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
 

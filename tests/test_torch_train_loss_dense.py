@@ -9,6 +9,7 @@ padding); the port's remat gradients bit-equal to its plain ones."""
 import pytest
 
 from _torch_train import VARIANTS, check_loss_and_grads
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["gemma2-9b", "gemma3-1b", "granite-34b", "qwen2.5-3b",
          "qwen2-vl-2b"]

@@ -12,6 +12,7 @@ import torch
 from _torch_train import (VARIANTS, batch, check_loss_and_grads,
                           dispatch_log, port_grads)
 from _torch_lm import configs, reference_model
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["kimi-k2-1t-a32b", "olmoe-1b-7b", "recurrentgemma-9b", "rwkv6-7b",
          "whisper-small"]

@@ -37,6 +37,8 @@ from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.convert import named_from_reference, params_from_reference
 from repro_torch.train import compression, data, optimizer
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 F32_RTOL, F32_ATOL = 1e-6, 1e-7
 BF16_RTOL = 2.0 ** -7
 
@@ -211,7 +213,11 @@ def test_error_feedback_converges():
 
 
 def test_compressed_psum_needs_more_than_one_card():
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    """The collective runs over a dimension of the ambient mesh
+    (``tests/test_torch_multicard_train.py``); without a mesh there is no
+    group to reduce over, and it raises instead of returning the local
+    value."""
+    with pytest.raises(ValueError, match="needs a mesh"):
         compression.compressed_psum(torch.zeros(4), torch.zeros(4), "pod")
     err = compression.init_error_state({"w": torch.ones(2, 3,
                                                         dtype=torch.bfloat16)})

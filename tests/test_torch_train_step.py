@@ -44,6 +44,8 @@ from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
                                init_train_state, make_batch, make_serve_steps,
                                make_train_step)
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 LOSS_ATOL = 1e-5
 GN_RTOL_COMPRESSED = 1e-4
 MB_ATOL = 5e-5

@@ -22,6 +22,8 @@ import torch
 
 from repro_torch.kernels import ref
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 RTOL = {torch.float64: 1e-10, torch.float32: 1e-5}
 LENGTHS = (1, 15, 16, 17, 63, 64, 65, 300)
 
