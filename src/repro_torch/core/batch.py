@@ -47,6 +47,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..kernels import lane_sum as klane
 from .lp_pdhg import PDHGResult, PDHGState, SolveStats
@@ -530,73 +531,74 @@ def _tol_steps(w_all, start, end, feas, cost, step_scale: float, tol: float,
     Returns (x, y, primal, dual, rel_gap, iters_b, restarts_b, conv, eta,
     omega) as tensors, x and y in original coordinates.
     """
-    B, n, m, D = w_all.shape
-    dev = w_all.device
-    # every sum over a lane's elements goes through the lane-sum kernel,
-    # whose order does not depend on the batch, so a lane solved in a
-    # smaller batch (a shard of the sharded sweep pipeline) keeps its bits
-    sums = klane.lane_sum
-    if operator == "pallas" and precision == "f64":
-        operator = "cumsum"  # the kernel is f32; cumsum is the same map
-    it_dt = torch.float64 if precision == "f64" else torch.float32
-    cert_dt = torch.float64
-    w_all = w_all.to(it_dt)
-    cost = cost.to(it_dt)
+    with obs.span("lp.setup"):
+        B, n, m, D = w_all.shape
+        dev = w_all.device
+        # every sum over a lane's elements goes through the lane-sum kernel,
+        # whose order does not depend on the batch, so a lane solved in a
+        # smaller batch (a shard of the sharded sweep pipeline) keeps its bits
+        sums = klane.lane_sum
+        if operator == "pallas" and precision == "f64":
+            operator = "cumsum"  # the kernel is f32; cumsum is the same map
+        it_dt = torch.float64 if precision == "f64" else torch.float32
+        cert_dt = torch.float64
+        w_all = w_all.to(it_dt)
+        cost = cost.to(it_dt)
 
-    if scaling == "ruiz":
-        c_sc, r_sc = _ruiz_scalings(w_all)
-        ws_all = w_all * (r_sc[:, None, :, None] / c_sc[:, :, None, None])
-        cost_s = cost / r_sc   # scaled dual caps (padded types stay huge)
-        mass = c_sc            # scaled primal simplex masses
-    else:
-        ws_all, cost_s, mass = w_all, cost, None
+        if scaling == "ruiz":
+            c_sc, r_sc = _ruiz_scalings(w_all)
+            ws_all = w_all * (r_sc[:, None, :, None] / c_sc[:, :, None, None])
+            cost_s = cost / r_sc   # scaled dual caps (padded types stay huge)
+            mass = c_sc            # scaled primal simplex masses
+        else:
+            ws_all, cost_s, mass = w_all, cost, None
 
-    fwd_all, adj_all = _make_operators(ws_all, start, end, Tp, operator)
-    op_norm = _power_op_norm(fwd_all, adj_all, feas, power_iters,
-                             sums).to(it_dt)
-    eta0 = step_scale / (op_norm + 1e-30)                     # (B,)
-    eta_lo, eta_hi = eta0 / _ETA_CLIP, eta0 * _ETA_CLIP
-    cap = cost_s[:, None, :, None]
+        fwd_all, adj_all = _make_operators(ws_all, start, end, Tp, operator)
+        op_norm = _power_op_norm(fwd_all, adj_all, feas, power_iters,
+                                 sums).to(it_dt)
+        eta0 = step_scale / (op_norm + 1e-30)                     # (B,)
+        eta_lo, eta_hi = eta0 / _ETA_CLIP, eta0 * _ETA_CLIP
+        cap = cost_s[:, None, :, None]
 
-    x = feas.to(it_dt)
-    x = x / x.sum(dim=2, keepdim=True)
-    if mass is not None:
-        x = x * mass[:, :, None]
-    if x0 is not None:
-        x = x0.to(it_dt)
+        x = feas.to(it_dt)
+        x = x / x.sum(dim=2, keepdim=True)
         if mass is not None:
             x = x * mass[:, :, None]
-        x = _project_simplex_masked(x, feas, mass)
-    if y0 is None:
-        y = torch.zeros((B, Tp, m, D), dtype=it_dt, device=dev)
-    else:
-        y = y0.to(it_dt)
-        if scaling == "ruiz":
-            y = y / r_sc[:, None, :, None]
-        y = _project_capped_simplex_td(y, cap, sums)
-    Ax = fwd_all(x)
+        if x0 is not None:
+            x = x0.to(it_dt)
+            if mass is not None:
+                x = x * mass[:, :, None]
+            x = _project_simplex_masked(x, feas, mass)
+        if y0 is None:
+            y = torch.zeros((B, Tp, m, D), dtype=it_dt, device=dev)
+        else:
+            y = y0.to(it_dt)
+            if scaling == "ruiz":
+                y = y / r_sc[:, None, :, None]
+            y = _project_capped_simplex_td(y, cap, sums)
+        Ax = fwd_all(x)
 
-    eta = eta0
-    if eta_init is not None:
-        eta = torch.clamp(eta_init.to(it_dt), eta_lo, eta_hi)
-    omega = torch.ones((B,), dtype=it_dt, device=dev)
-    if omega_on and omega_init is not None:
-        omega = torch.clamp(omega_init.to(it_dt), 1.0 / _OMEGA_CLIP,
-                            _OMEGA_CLIP)
+        eta = eta0
+        if eta_init is not None:
+            eta = torch.clamp(eta_init.to(it_dt), eta_lo, eta_hi)
+        omega = torch.ones((B,), dtype=it_dt, device=dev)
+        if omega_on and omega_init is not None:
+            omega = torch.clamp(omega_init.to(it_dt), 1.0 / _OMEGA_CLIP,
+                                _OMEGA_CLIP)
 
-    zeros_b = torch.zeros((B,), dtype=it_dt, device=dev)
-    c = _TolCarry(
-        x=x, x_prev=x, Ax=Ax, Ax_prev=Ax, y=y, eta=eta, omega=omega, k=0,
-        iters_b=torch.zeros((B,), dtype=torch.int32, device=dev),
-        conv=torch.zeros((B,), dtype=torch.bool, device=dev),
-        restarts_b=torch.zeros((B,), dtype=torch.int32, device=dev),
-        gap_b=torch.full((B,), torch.inf, dtype=cert_dt, device=dev),
-        # the normalized gap starts < 1 (the dual of y=0 is 0), so 1.0
-        # anchors the first sufficient-decay restart check
-        last_gap=torch.ones((B,), dtype=cert_dt, device=dev),
-        sum_x=torch.zeros_like(x), sum_y=torch.zeros_like(y),
-        sum_Ax=torch.zeros_like(Ax), elen=zeros_b, dxs=zeros_b,
-        dys=zeros_b)
+        zeros_b = torch.zeros((B,), dtype=it_dt, device=dev)
+        c = _TolCarry(
+            x=x, x_prev=x, Ax=Ax, Ax_prev=Ax, y=y, eta=eta, omega=omega, k=0,
+            iters_b=torch.zeros((B,), dtype=torch.int32, device=dev),
+            conv=torch.zeros((B,), dtype=torch.bool, device=dev),
+            restarts_b=torch.zeros((B,), dtype=torch.int32, device=dev),
+            gap_b=torch.full((B,), torch.inf, dtype=cert_dt, device=dev),
+            # the normalized gap starts < 1 (the dual of y=0 is 0), so 1.0
+            # anchors the first sufficient-decay restart check
+            last_gap=torch.ones((B,), dtype=cert_dt, device=dev),
+            sum_x=torch.zeros_like(x), sum_y=torch.zeros_like(y),
+            sum_Ax=torch.zeros_like(Ax), elen=zeros_b, dxs=zeros_b,
+            dys=zeros_b)
 
     def attempt(c: _TolCarry) -> None:
         active = ~c.conv
@@ -703,59 +705,66 @@ def _tol_steps(w_all, start, end, feas, cost, step_scale: float, tol: float,
         c.conv = c.conv | (c.gap_b <= tol)
 
     while c.k < max_iters:
-        # the final chunk shrinks to the remaining budget
-        for _ in range(min(check_every, max_iters - c.k)):
-            attempt(c)
-        check(c)
+        # the final chunk shrinks to the remaining budget; no span stays
+        # open across the yield (callers interleave several solves)
+        chunk = min(check_every, max_iters - c.k)
+        with obs.span("lp.enqueue"):
+            for _ in range(chunk):
+                attempt(c)
+            check(c)
+        obs.add("lp.attempts", chunk)
         yield
-        if bool(c.conv.all()):  # the one host read per check
+        with obs.span("lp.wait"):
+            done = bool(c.conv.all())  # the one host read per check
+        if done:
             break
 
-    if precision == "mixed":
-        # f64 certificate with f64 weights, then a short plain-PDHG polish
-        # at the adapted per-lane step split, kept per lane only where it
-        # tightens the certified gap
-        pol_op = "cumsum" if operator == "pallas" else operator
-        fwd64, adj64 = _make_operators(ws_all.to(cert_dt), start, end, Tp,
-                                       pol_op)
-        x_fin = c.x.to(cert_dt)
-        y_fin = c.y.to(cert_dt)
-        primal, dual, rel_gap = _objectives(fwd64(x_fin), y_fin, adj64,
-                                            cost_s, feas, mass=mass,
-                                            dt=cert_dt)
-        cap64 = cap.to(cert_dt)
-        mass64 = None if mass is None else mass.to(cert_dt)
-        if omega_on:
-            sig_p = (c.eta * c.omega).to(cert_dt)[:, None, None, None]
-            tau_p = (c.eta / c.omega).to(cert_dt)[:, None, None]
+    with obs.span("lp.polish"):
+        if precision == "mixed":
+            # f64 certificate with f64 weights, then a short plain-PDHG polish
+            # at the adapted per-lane step split, kept per lane only where it
+            # tightens the certified gap
+            pol_op = "cumsum" if operator == "pallas" else operator
+            fwd64, adj64 = _make_operators(ws_all.to(cert_dt), start, end, Tp,
+                                           pol_op)
+            x_fin = c.x.to(cert_dt)
+            y_fin = c.y.to(cert_dt)
+            primal, dual, rel_gap = _objectives(fwd64(x_fin), y_fin, adj64,
+                                                cost_s, feas, mass=mass,
+                                                dt=cert_dt)
+            cap64 = cap.to(cert_dt)
+            mass64 = None if mass is None else mass.to(cert_dt)
+            if omega_on:
+                sig_p = (c.eta * c.omega).to(cert_dt)[:, None, None, None]
+                tau_p = (c.eta / c.omega).to(cert_dt)[:, None, None]
+            else:
+                sig_p = c.eta.to(cert_dt)[:, None, None, None]
+                tau_p = c.eta.to(cert_dt)[:, None, None]
+            x_p, y_p, x_pr = x_fin, y_fin, x_fin
+            for _ in range(_POLISH_ITERS):
+                y_p = _project_capped_simplex_td(
+                    y_p + sig_p * fwd64(2.0 * x_p - x_pr), cap64, sums)
+                x_p, x_pr = _project_simplex_masked(
+                    x_p - tau_p * adj64(y_p), feas, mass64), x_p
+            p_p, d_p, r_p = _objectives(fwd64(x_p), y_p, adj64, cost_s, feas,
+                                        mass=mass, dt=cert_dt)
+            better = r_p < rel_gap
+            x_fin = torch.where(better[:, None, None], x_p, x_fin)
+            y_fin = torch.where(better[:, None, None, None], y_p, y_fin)
+            primal = torch.where(better, p_p, primal)
+            dual = torch.where(better, d_p, dual)
+            rel_gap = torch.where(better, r_p, rel_gap)
         else:
-            sig_p = c.eta.to(cert_dt)[:, None, None, None]
-            tau_p = c.eta.to(cert_dt)[:, None, None]
-        x_p, y_p, x_pr = x_fin, y_fin, x_fin
-        for _ in range(_POLISH_ITERS):
-            y_p = _project_capped_simplex_td(
-                y_p + sig_p * fwd64(2.0 * x_p - x_pr), cap64, sums)
-            x_p, x_pr = _project_simplex_masked(
-                x_p - tau_p * adj64(y_p), feas, mass64), x_p
-        p_p, d_p, r_p = _objectives(fwd64(x_p), y_p, adj64, cost_s, feas,
-                                    mass=mass, dt=cert_dt)
-        better = r_p < rel_gap
-        x_fin = torch.where(better[:, None, None], x_p, x_fin)
-        y_fin = torch.where(better[:, None, None, None], y_p, y_fin)
-        primal = torch.where(better, p_p, primal)
-        dual = torch.where(better, d_p, dual)
-        rel_gap = torch.where(better, r_p, rel_gap)
-    else:
-        x_fin, y_fin = c.x, c.y
-        primal, dual, rel_gap = _objectives(c.Ax, c.y, adj_all, cost_s,
-                                            feas, mass=mass, dt=cert_dt)
+            x_fin, y_fin = c.x, c.y
+            primal, dual, rel_gap = _objectives(c.Ax, c.y, adj_all, cost_s,
+                                                feas, mass=mass, dt=cert_dt)
 
-    if scaling == "ruiz":
-        # back to original coordinates: callers never see the scales
-        x_fin = x_fin / c_sc[:, :, None]
-        y_fin = y_fin * r_sc[:, None, :, None]
-    return (x_fin, y_fin, primal, dual, rel_gap, c.iters_b, c.restarts_b,
-            c.conv, c.eta, c.omega)
+        if scaling == "ruiz":
+            # back to original coordinates: callers never see the scales
+            x_fin = x_fin / c_sc[:, :, None]
+            y_fin = y_fin * r_sc[:, None, :, None]
+        return (x_fin, y_fin, primal, dual, rel_gap, c.iters_b, c.restarts_b,
+                c.conv, c.eta, c.omega)
 
 
 def _align_state(state: PDHGState, batch: ProblemBatch):
@@ -871,58 +880,67 @@ def solve_lp_many(problems, iters: int = 2000, step_scale: float = 0.9,
     warm = None if init is None else _align_state(init, batch)
     _count_dispatch()
     if tol is None:
-        x0 = y0 = None
-        if warm is not None:
-            x0, y0 = (torch.from_numpy(a).to(dev) for a in warm[:2])
-        w, s, e, f, cst = _device_arrays(batch, torch.float32, dev)
-        with torch.no_grad():
+        with obs.span("lp.setup"):
+            x0 = y0 = None
+            if warm is not None:
+                x0, y0 = (torch.from_numpy(a).to(dev) for a in warm[:2])
+            w, s, e, f, cst = _device_arrays(batch, torch.float32, dev)
+        with torch.no_grad(), obs.span("lp.enqueue"):
             out = _pdhg_run_many(w, s, e, f, cst, float(step_scale),
                                  iters=iters, Tp=batch.Tp, operator=operator,
                                  x0=x0, y0=y0)
-        x, y, primal, dual, rel_gap = (t.cpu().numpy() for t in out)
+        obs.add("lp.attempts", iters)
+        with obs.span("lp.read"):
+            x, y, primal, dual, rel_gap = (t.cpu().numpy() for t in out)
         iters_b = np.full(batch.B, iters, np.int64)
         restarts_b = np.zeros(batch.B, np.int64)
         conv = np.ones(batch.B, bool)
         eta_np = omega_np = None
     else:
-        x0 = y0 = eta_init = omega_init = None
-        if warm is not None:
-            x0, y0 = (torch.from_numpy(a).to(dev) for a in warm[:2])
-            if warm[2] is not None:
-                eta_init = torch.tensor(warm[2], dtype=torch.float32,
-                                        device=dev)
-            if warm[3] is not None:
-                omega_init = torch.tensor(warm[3], dtype=torch.float32,
-                                          device=dev)
-        w_dt = torch.float64 if precision == "f64" else torch.float32
+        with obs.span("lp.setup"):
+            x0 = y0 = eta_init = omega_init = None
+            if warm is not None:
+                x0, y0 = (torch.from_numpy(a).to(dev) for a in warm[:2])
+                if warm[2] is not None:
+                    eta_init = torch.tensor(warm[2], dtype=torch.float32,
+                                            device=dev)
+                if warm[3] is not None:
+                    omega_init = torch.tensor(warm[3], dtype=torch.float32,
+                                              device=dev)
+            w_dt = torch.float64 if precision == "f64" else torch.float32
+            arrays = _device_arrays(batch, w_dt, dev)
         with torch.no_grad():
             out = _tol_core(
-                *_device_arrays(batch, w_dt, dev), _f32(step_scale),
+                *arrays, _f32(step_scale),
                 _f32(tol), max_iters=iters, check_every=check_every,
                 Tp=batch.Tp, operator=operator, adaptive=adaptive,
                 restart=restart, power_iters=_POWER_ITERS, scaling=scaling,
                 precision=precision, omega_on=omega, x0=x0, y0=y0,
                 eta_init=eta_init, omega_init=omega_init)
-        (x, y, primal, dual, rel_gap, iters_b, restarts_b, conv, eta_o,
-         omega_o) = (t.cpu().numpy() for t in out)
+        with obs.span("lp.read"):
+            (x, y, primal, dual, rel_gap, iters_b, restarts_b, conv, eta_o,
+             omega_o) = (t.cpu().numpy() for t in out)
         iters_b = iters_b.astype(np.int64)
         restarts_b = restarts_b.astype(np.int64)
         eta_np = eta_o.astype(np.float32)
         omega_np = omega_o.astype(np.float32) if omega else None
-    results = []
-    for b, t in enumerate(batch.problems):
-        x_b = x[b, : t.n, : t.m]
-        feas_b = batch.feas[b, : t.n, : t.m]
-        if tol is not None:
-            results.append(_tol_result(x_b, feas_b, t, primal[b], dual[b],
-                                       rel_gap[b], iters_b[b],
-                                       restarts_b[b], conv[b]))
-            continue
-        mapping = np.where(feas_b, x_b, -1.0).argmax(axis=1).astype(np.int64)
-        results.append(PDHGResult(
-            x=x_b, objective=float(primal[b]), lower_bound=float(dual[b]),
-            gap=float(primal[b] - dual[b]), iters=iters, mapping=mapping,
-            x_max=x_b.max(axis=1), kkt=float(rel_gap[b])))
+    with obs.span("lp.results", host=True):
+        results = []
+        for b, t in enumerate(batch.problems):
+            x_b = x[b, : t.n, : t.m]
+            feas_b = batch.feas[b, : t.n, : t.m]
+            if tol is not None:
+                results.append(_tol_result(x_b, feas_b, t, primal[b],
+                                           dual[b], rel_gap[b], iters_b[b],
+                                           restarts_b[b], conv[b]))
+                continue
+            mapping = np.where(feas_b, x_b, -1.0).argmax(axis=1) \
+                .astype(np.int64)
+            results.append(PDHGResult(
+                x=x_b, objective=float(primal[b]),
+                lower_bound=float(dual[b]),
+                gap=float(primal[b] - dual[b]), iters=iters, mapping=mapping,
+                x_max=x_b.max(axis=1), kkt=float(rel_gap[b])))
     if not full_output:
         return results
     stats = SolveStats(
@@ -961,8 +979,9 @@ def _pipeline_steps(batches, lanes, dev, it_dt, tol, iters, step_scale,
     dtype, original coordinates).  Returns each group's outputs as numpy
     arrays (x, primal, dual, rel, iters, restarts, conv, eta, omega) and the
     last group's y."""
-    stacked = [torch.stack(parts) for parts in zip(
-        *(_device_arrays(bt, it_dt, dev, lanes) for bt in batches))]
+    with obs.span("lp.setup"):
+        stacked = [torch.stack(parts) for parts in zip(
+            *(_device_arrays(bt, it_dt, dev, lanes) for bt in batches))]
     outs = []
     x_c = y_c = eta_c = om_c = None
     for g in range(len(batches)):
@@ -980,8 +999,9 @@ def _pipeline_steps(batches, lanes, dev, it_dt, tol, iters, step_scale,
         eta_c, om_c = eta_o.to(it_dt), om_o.to(it_dt)
         outs.append((x_o.to(torch.float32), primal, dual, rel, it_b, rs_b,
                      conv, eta_o.to(torch.float32), om_o.to(torch.float32)))
-    y_last = y_c.to(torch.float32).cpu().numpy()
-    return [[t.cpu().numpy() for t in out] for out in outs], y_last
+    with obs.span("lp.read"):
+        y_last = y_c.to(torch.float32).cpu().numpy()
+        return [[t.cpu().numpy() for t in out] for out in outs], y_last
 
 
 def _run_shards(steps, shards):
@@ -1065,29 +1085,30 @@ def _sweep_pipeline(groups, pad_to, tol, iters, step_scale, operator,
             precision=precision, omega=omega)
 
     parts = _run_shards(steps, shards)
-    # gathered lane by lane, in shard order
-    outs = [[np.concatenate([p[0][g][k] for p in parts])
-             for k in range(len(parts[0][0][g]))]
-            for g in range(len(batches))]
-    y_last = np.concatenate([p[1] for p in parts])
-    results: list[PDHGResult] = []
-    stats: list[SolveStats] = []
-    for g, (batch, out) in enumerate(zip(batches, outs)):
-        xs, primals, duals, rels, iters_g, restarts_g, convs, etas, omegas \
-            = out
-        for b, t in enumerate(batch.problems):
-            results.append(_tol_result(
-                xs[b, : t.n, : t.m], batch.feas[b, : t.n, : t.m], t,
-                primals[b], duals[b], rels[b], iters_g[b], restarts_g[b],
-                convs[b]))
-        state = None
-        if g == len(batches) - 1:
-            state = PDHGState(x=xs, y=y_last, eta=etas,
-                              omega=omegas if omega else None)
-        stats.append(SolveStats(
-            iterations=iters_g.astype(np.int64),
-            restarts=restarts_g.astype(np.int64), kkt=rels,
-            converged=convs, tol=tol, state=state))
+    with obs.span("lp.results", host=True):
+        # gathered lane by lane, in shard order
+        outs = [[np.concatenate([p[0][g][k] for p in parts])
+                 for k in range(len(parts[0][0][g]))]
+                for g in range(len(batches))]
+        y_last = np.concatenate([p[1] for p in parts])
+        results: list[PDHGResult] = []
+        stats: list[SolveStats] = []
+        for g, (batch, out) in enumerate(zip(batches, outs)):
+            (xs, primals, duals, rels, iters_g, restarts_g, convs, etas,
+             omegas) = out
+            for b, t in enumerate(batch.problems):
+                results.append(_tol_result(
+                    xs[b, : t.n, : t.m], batch.feas[b, : t.n, : t.m], t,
+                    primals[b], duals[b], rels[b], iters_g[b],
+                    restarts_g[b], convs[b]))
+            state = None
+            if g == len(batches) - 1:
+                state = PDHGState(x=xs, y=y_last, eta=etas,
+                                  omega=omegas if omega else None)
+            stats.append(SolveStats(
+                iterations=iters_g.astype(np.int64),
+                restarts=restarts_g.astype(np.int64), kkt=rels,
+                converged=convs, tol=tol, state=state))
     return results, stats
 
 

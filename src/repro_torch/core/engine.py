@@ -44,6 +44,7 @@ import time
 
 import numpy as np
 
+from .. import obs
 from ..device import resolve_device
 from .api import ALGORITHMS
 from .batch import (DEFAULT_CHECK_EVERY, OPERATORS, PRECISIONS, SCALINGS,
@@ -436,10 +437,10 @@ class FleetResult:
         fixed-iters mode.
     plan: the bucketed ``PackPlan`` (None on the warm-sweep path, which
         packs to one common shape by construction).
-    timings: phase breakdown — pack_s / lp_s / place_s / total_s plus
-        per-bucket lists bucket_lp_s / bucket_place_s and a
-        ``placement`` block (which placement engine ran, stepper calls
-        and waves, summed per-wave seconds).
+    timings: phase breakdown — pack_s / lp_s / place_s / total_s (host
+        clock, summed over the buckets) and a ``placement`` block (which
+        placement engine ran, stepper calls and waves, summed per-wave
+        seconds).
     lp_results: each instance's ``PDHGResult`` (mapping and bounds), in
         submission order, so a caller can place or re-check an instance
         with the fleet's own LP solution.
@@ -516,8 +517,9 @@ def _protocol_batched(batch: ProblemBatch, lp_results, algos, fits,
         t0 = time.perf_counter()
         filling = algo.endswith("-f")
         if algo in ("penalty-map", "penalty-map-f"):
-            mapsets = [[penalty_map(t, kind) for t in batch.problems]
-                       for kind in ("avg", "max")]
+            with obs.span("place.maps", host=True):
+                mapsets = [[penalty_map(t, kind) for t in batch.problems]
+                           for kind in ("avg", "max")]
         elif algo in ("lp-map", "lp-map-f"):
             mapsets = [[res.mapping for res in lp_results]]
         else:
@@ -540,14 +542,17 @@ def _protocol_batched(batch: ProblemBatch, lp_results, algos, fits,
                                   device=device)
                 if tels is not None:
                     tels.append(tel)
-                for b, (t, s) in enumerate(zip(batch.problems, sols)):
-                    c = s.cost(t)
-                    if c < best_cost[b]:
-                        best_cost[b], best[b] = c, s
+                with obs.span("place.costs", host=True):
+                    for b, (t, s) in enumerate(zip(batch.problems, sols)):
+                        c = s.cost(t)
+                        if c < best_cost[b]:
+                            best_cost[b], best[b] = c, s
         wall = (time.perf_counter() - t0) / B
-        for b, t in enumerate(batch.problems):
-            if check:
-                verify(t, best[b])
+        if check:
+            with obs.span("place.verify", host=True):
+                for t, s in zip(batch.problems, best):
+                    verify(t, s)
+        for b in range(B):
             out[b]["costs"][algo] = best_cost[b]
             out[b]["wall_s"][algo] = wall
     for entry in out:
@@ -800,19 +805,21 @@ class FleetEngine:
                 "a scenario group is one same-shape batch solved in a "
                 "single dispatch, not a grid-adjacent sweep chain; use "
                 "a SweepConfig without warm_start")
-        trimmed = self._trimmed(problems)
-        if not trimmed:
-            raise ValueError("solve_scenarios needs at least one instance")
-        shapes = {(t.n, t.m, t.D, t.T) for t in trimmed}
-        if len(shapes) > 1:
-            raise ValueError(
-                f"solve_scenarios needs every trimmed instance on ONE "
-                f"(n, m, D, T') shape (that is what makes the group a "
-                f"single batched dispatch), got {sorted(shapes)}; fan "
-                f"scenarios out of one forecast base "
-                f"(repro.stochastic.fan_out) or pad them yourself")
-        batch = problems if isinstance(problems, ProblemBatch) \
-            else pack_problems(trimmed, assume_trimmed=True)
+        with obs.span("pack", host=True):
+            trimmed = self._trimmed(problems)
+            if not trimmed:
+                raise ValueError(
+                    "solve_scenarios needs at least one instance")
+            shapes = {(t.n, t.m, t.D, t.T) for t in trimmed}
+            if len(shapes) > 1:
+                raise ValueError(
+                    f"solve_scenarios needs every trimmed instance on ONE "
+                    f"(n, m, D, T') shape (that is what makes the group a "
+                    f"single batched dispatch), got {sorted(shapes)}; fan "
+                    f"scenarios out of one forecast base "
+                    f"(repro.stochastic.fan_out) or pad them yourself")
+            batch = problems if isinstance(problems, ProblemBatch) \
+                else pack_problems(trimmed, assume_trimmed=True)
         bucket = Bucket(indices=tuple(range(batch.B)), batch=batch)
         return self._solve_bucket(bucket, init=init)
 
@@ -871,16 +878,20 @@ class FleetEngine:
         filling = cfg.filling if filling is None else filling
         lows = None
         if not isinstance(problems, ProblemBatch):
-            lows = [lower_constraints(p) for p in problems]
-            problems = [low.lowered for low in lows]
+            with obs.span("place.prep", host=True):
+                lows = [lower_constraints(p) for p in problems]
+                problems = [low.lowered for low in lows]
         if cfg.engine == "loop":
             sols = [two_phase(t, mp, fit=fit, filling=filling,
                               backend=cfg.backend, device=self.device)
                     for t, mp in zip(self._trimmed(problems), mappings)]
         else:
-            batch = problems if isinstance(problems, ProblemBatch) \
-                else pack_problems(self._trimmed(problems),
-                                   assume_trimmed=True)
+            if isinstance(problems, ProblemBatch):
+                batch = problems
+            else:
+                with obs.span("place.prep", host=True):
+                    batch = pack_problems(self._trimmed(problems),
+                                          assume_trimmed=True)
             sols = place_many(batch, mappings, fit=fit, filling=filling,
                               backend=cfg.backend,
                               placement=_ENGINE_STEPPER[cfg.engine],
@@ -910,66 +921,61 @@ class FleetEngine:
     def evaluate(self, problems) -> FleetResult:
         """§VI protocol over a fleet: bucketed pack -> per-bucket LP
         solve -> per-bucket lockstep placement -> entries merged back
-        into submission order, as a ``FleetResult``."""
-        t_start = time.perf_counter()
-        if self.sweep.warm_start is not None:
-            return self._evaluate_warm(problems, t_start)
-        plan = problems if isinstance(problems, PackPlan) \
-            else self.pack(problems)
-        pack_s = time.perf_counter() - t_start
+        into submission order, as a ``FleetResult``.  Under a
+        ``torch.profiler`` session the call is one ``evaluate`` step of
+        ``repro_torch.obs``."""
+        with obs.span("evaluate"):
+            t_start = time.perf_counter()
+            if self.sweep.warm_start is not None:
+                return self._evaluate_warm(problems, t_start)
+            timings = {"pack_s": 0.0, "lp_s": 0.0, "place_s": 0.0}
+            if isinstance(problems, PackPlan):
+                plan = problems
+            else:
+                with obs.timed("pack", timings, "pack_s", host=True):
+                    plan = self.pack(problems)
 
-        entries: list[dict | None] = [None] * plan.n_instances
-        lp_results: list[PDHGResult | None] = [None] * plan.n_instances
-        stats: list[SolveStats] = []
-        bucket_lp_s, bucket_place_s = [], []
-        tels: list[dict] = []
-        for bucket in plan.buckets:
-            t0 = time.perf_counter()
-            res, st = self._solve_bucket(bucket)
-            bucket_lp_s.append(time.perf_counter() - t0)
-            stats.extend(st)
-            t0 = time.perf_counter()
-            part = self._evaluate_bucket(bucket.batch, res, tels=tels)
-            bucket_place_s.append(time.perf_counter() - t0)
-            if self.solver.tol is not None:
-                self._attach_solver(part, res)
-            for i, entry, r in zip(bucket.indices, part, res):
-                entries[i] = entry
-                lp_results[i] = r
-        timings = {
-            "pack_s": pack_s,
-            "lp_s": sum(bucket_lp_s),
-            "place_s": sum(bucket_place_s),
-            "bucket_lp_s": bucket_lp_s,
-            "bucket_place_s": bucket_place_s,
-            "placement": _placement_telemetry(self.placement.engine, tels),
-            "total_s": time.perf_counter() - t_start,
-        }
-        return FleetResult(entries=entries, stats=stats, plan=plan,
-                           timings=timings, lp_results=lp_results)
+            entries: list[dict | None] = [None] * plan.n_instances
+            lp_results: list[PDHGResult | None] = [None] * plan.n_instances
+            stats: list[SolveStats] = []
+            tels: list[dict] = []
+            for bucket in plan.buckets:
+                with obs.timed("lp", timings, "lp_s"):
+                    res, st = self._solve_bucket(bucket)
+                stats.extend(st)
+                with obs.timed("place", timings, "place_s"):
+                    part = self._evaluate_bucket(bucket.batch, res,
+                                                 tels=tels)
+                if self.solver.tol is not None:
+                    self._attach_solver(part, res)
+                for i, entry, r in zip(bucket.indices, part, res):
+                    entries[i] = entry
+                    lp_results[i] = r
+            timings["placement"] = _placement_telemetry(
+                self.placement.engine, tels)
+            timings["total_s"] = time.perf_counter() - t_start
+            return FleetResult(entries=entries, stats=stats, plan=plan,
+                               timings=timings, lp_results=lp_results)
 
     def _evaluate_warm(self, problems, t_start: float) -> FleetResult:
         """The warm-started sweep path: one chained LP solve, then one
         single-shape placement pass over the whole grid."""
         trimmed = self._trimmed(problems)
-        t0 = time.perf_counter()
-        lp_results, stats = self._solve_warm(trimmed)
-        lp_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        batch = problems if isinstance(problems, ProblemBatch) \
-            else pack_problems(trimmed, assume_trimmed=True)
-        pack_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        timings = {"pack_s": 0.0, "lp_s": 0.0, "place_s": 0.0}
+        with obs.timed("lp", timings, "lp_s"):
+            lp_results, stats = self._solve_warm(trimmed)
+        if isinstance(problems, ProblemBatch):
+            batch = problems
+        else:
+            with obs.timed("pack", timings, "pack_s", host=True):
+                batch = pack_problems(trimmed, assume_trimmed=True)
         tels: list[dict] = []
-        entries = self._evaluate_bucket(batch, lp_results, tels=tels)
-        place_s = time.perf_counter() - t0
+        with obs.timed("place", timings, "place_s"):
+            entries = self._evaluate_bucket(batch, lp_results, tels=tels)
         self._attach_solver(entries, lp_results)
-        timings = {
-            "pack_s": pack_s, "lp_s": lp_s, "place_s": place_s,
-            "bucket_lp_s": [lp_s], "bucket_place_s": [place_s],
-            "placement": _placement_telemetry(self.placement.engine, tels),
-            "total_s": time.perf_counter() - t_start,
-        }
+        timings["placement"] = _placement_telemetry(self.placement.engine,
+                                                    tels)
+        timings["total_s"] = time.perf_counter() - t_start
         return FleetResult(entries=entries, stats=stats, plan=None,
                            timings=timings, lp_results=lp_results)
 

@@ -34,6 +34,7 @@ import time
 
 import numpy as np
 
+from .. import obs
 from ..device import resolve_device
 from . import penalty as penalty_mod
 from .batch import ProblemBatch, pack_problems
@@ -425,12 +426,13 @@ def place_many(problems, mappings, fit: str = "first",
             f"placement must be one of {PLACEMENT_STEPPERS}, "
             f"got {placement!r}")
     dev = resolve_device(device)
-    batch = problems if isinstance(problems, ProblemBatch) \
-        else pack_problems(problems)
-    if len(mappings) != batch.B:
-        raise ValueError("need exactly one mapping per instance")
-    phases = [_phases(t, np.asarray(mp, np.int64), fit, filling)
-              for t, mp in zip(batch.problems, mappings)]
+    with obs.span("place.prep", host=True):
+        batch = problems if isinstance(problems, ProblemBatch) \
+            else pack_problems(problems)
+        if len(mappings) != batch.B:
+            raise ValueError("need exactly one mapping per instance")
+        phases = [_phases(t, np.asarray(mp, np.int64), fit, filling)
+                  for t, mp in zip(batch.problems, mappings)]
     if placement == "compiled":
         from . import place_step
 
@@ -455,13 +457,14 @@ def place_many(problems, mappings, fit: str = "first",
         telemetry["waves"] = len(wave_s)
         telemetry["wave_s"] = wave_s
 
-    out = []
-    for b, t in enumerate(batch.problems):
-        assert eng.placed[b, : t.n].all(), \
-            "place_many must place every task"
-        out.append(Solution(
-            node_type=eng.node_type[b, : eng.counts[b]].copy(),
-            assign=eng.assign[b, : t.n].copy(),
-            meta=dict(meta or {}, fit=fit, filling=filling),
-        ))
+    with obs.span("place.solutions", host=True):
+        out = []
+        for b, t in enumerate(batch.problems):
+            assert eng.placed[b, : t.n].all(), \
+                "place_many must place every task"
+            out.append(Solution(
+                node_type=eng.node_type[b, : eng.counts[b]].copy(),
+                assign=eng.assign[b, : t.n].copy(),
+                meta=dict(meta or {}, fit=fit, filling=filling),
+            ))
     return out

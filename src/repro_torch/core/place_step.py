@@ -50,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..kernels import place_step as kstep
 from .solution import Solution
@@ -89,15 +90,18 @@ def _upload(arrays, device):
     """Device tensors of ``arrays`` (contiguous numpy) through one
     host→card copy: the arrays are packed, 8-byte aligned, into one byte
     buffer, and each tensor is a view of the copied buffer."""
-    offsets, total = [], 0
-    for a in arrays:
-        total = (total + 7) & ~7
-        offsets.append(total)
-        total += a.nbytes
-    buf = np.empty(total, np.uint8)
-    for a, off in zip(arrays, offsets):
-        buf[off: off + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dbuf = torch.from_numpy(buf).to(device)
+    with obs.span("place.pack", host=True):
+        offsets, total = [], 0
+        for a in arrays:
+            total = (total + 7) & ~7
+            offsets.append(total)
+            total += a.nbytes
+        buf = np.empty(total, np.uint8)
+        for a, off in zip(arrays, offsets):
+            buf[off: off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    with obs.span("place.upload"):
+        dbuf = torch.from_numpy(buf).to(device)
+    obs.add("place.upload_bytes", total)
     return [dbuf[off: off + a.nbytes]
             .view(getattr(torch, a.dtype.name)).view(a.shape)
             for a, off in zip(arrays, offsets)]
@@ -129,17 +133,21 @@ class _Driver:
         ``u_pad`` and the kernel's sequence operands ``(lens, dem_seq,
         s_seq, e_seq, dn_seq, capx, cap_rows)``."""
         batch = self.batch
-        u_pad, lens = _pad_lists(lists, L)
-        lidx = b_of[:, None]
-        dem_seq = np.ascontiguousarray(
-            batch.dem[lidx, u_pad].transpose(1, 0, 2), np.float64)
-        s_seq = np.ascontiguousarray(
-            batch.start[lidx, u_pad].T.astype(np.int32))
-        e_seq = np.ascontiguousarray(
-            batch.end[lidx, u_pad].T.astype(np.int32))
-        dn_seq = np.ascontiguousarray(self.dn[lidx, u_pad].T, np.float64)
-        capx = np.ascontiguousarray(self.capx_all[b_of, tau_of], np.float64)
-        cap_rows = np.ascontiguousarray(batch.cap[b_of, tau_of], np.float64)
+        with obs.span("place.gather", host=True):
+            u_pad, lens = _pad_lists(lists, L)
+            lidx = b_of[:, None]
+            dem_seq = np.ascontiguousarray(
+                batch.dem[lidx, u_pad].transpose(1, 0, 2), np.float64)
+            s_seq = np.ascontiguousarray(
+                batch.start[lidx, u_pad].T.astype(np.int32))
+            e_seq = np.ascontiguousarray(
+                batch.end[lidx, u_pad].T.astype(np.int32))
+            dn_seq = np.ascontiguousarray(self.dn[lidx, u_pad].T,
+                                          np.float64)
+            capx = np.ascontiguousarray(self.capx_all[b_of, tau_of],
+                                        np.float64)
+            cap_rows = np.ascontiguousarray(batch.cap[b_of, tau_of],
+                                            np.float64)
         return u_pad, (lens, dem_seq, s_seq, e_seq, dn_seq, capx, cap_rows)
 
     def cap_pool(self, cap_rows, n_cap: int):
@@ -217,37 +225,41 @@ def _run_type_parallel(drv: _Driver):
     block offsets are the exclusive prefix sums of the per-type node counts.
     Returns None when the lane pool would exceed the CPU's cap."""
     phases, B = drv.phases, drv.B
-    lanes = [(b, k) for b in range(B)
-             for k in range(len(phases[b].type_order))
-             if len(phases[b].own[k])]
-    if not lanes:
-        return [], np.full((B, 1), -1, np.int64)
-    lists = [phases[b].own[k] for b, k in lanes]
-    b_of = np.array([b for b, _ in lanes], np.int64)
-    k_of = np.array([k for _, k in lanes], np.int64)
-    tau_of = np.array([int(phases[b].type_order[k]) for b, k in lanes],
-                      np.int64)
-    L = max(len(x) for x in lists)
+    with obs.span("place.gather", host=True):
+        lanes = [(b, k) for b in range(B)
+                 for k in range(len(phases[b].type_order))
+                 if len(phases[b].own[k])]
+        if not lanes:
+            return [], np.full((B, 1), -1, np.int64)
+        lists = [phases[b].own[k] for b, k in lanes]
+        b_of = np.array([b for b, _ in lanes], np.int64)
+        k_of = np.array([k for _, k in lanes], np.int64)
+        tau_of = np.array([int(phases[b].type_order[k]) for b, k in lanes],
+                          np.int64)
+        L = max(len(x) for x in lists)
     if _oversized(drv.device, len(lanes) * L * drv.K):
         return None
     u_pad, seq = drv.gather(lists, L, b_of, tau_of)
     seq = _upload(seq, drv.device)
-    pool = drv.cap_pool(seq[-1], L)
-    w0 = torch.zeros(len(lanes), dtype=torch.int32, device=drv.device)
-    _, w_np, bad, j_rec = drv.dispatch(pool, w0, seq, purchase=True,
-                                       similarity=drv.similarity, rows=L)
-    drv.raise_bad(bad, u_pad, b_of, tau_of, phase_of=k_of)
-    # per-instance node blocks in type order -> purchase-rank offsets
-    per_type = np.zeros((B, drv.batch.m), np.int64)
-    per_type[b_of, tau_of] = w_np
-    offsets = np.cumsum(per_type, axis=1) - per_type  # exclusive
-    drv.counts = per_type.sum(axis=1)
-    drv.apply(j_rec, u_pad, b_of, offsets[b_of, tau_of])
-    node_type = np.full((B, max(1, int(drv.counts.max()))), -1, np.int64)
-    for (b, tau, cnt) in zip(b_of, tau_of, w_np):
-        if cnt:
-            off = offsets[b, tau]
-            node_type[b, off: off + cnt] = tau
+    with obs.span("place.dispatch"):
+        pool = drv.cap_pool(seq[-1], L)
+        w0 = torch.zeros(len(lanes), dtype=torch.int32, device=drv.device)
+        _, w_np, bad, j_rec = drv.dispatch(pool, w0, seq, purchase=True,
+                                           similarity=drv.similarity, rows=L)
+    with obs.span("place.apply", host=True):
+        drv.raise_bad(bad, u_pad, b_of, tau_of, phase_of=k_of)
+        # per-instance node blocks in type order -> purchase-rank offsets
+        per_type = np.zeros((B, drv.batch.m), np.int64)
+        per_type[b_of, tau_of] = w_np
+        offsets = np.cumsum(per_type, axis=1) - per_type  # exclusive
+        drv.counts = per_type.sum(axis=1)
+        drv.apply(j_rec, u_pad, b_of, offsets[b_of, tau_of])
+        node_type = np.full((B, max(1, int(drv.counts.max()))), -1,
+                            np.int64)
+        for (b, tau, cnt) in zip(b_of, tau_of, w_np):
+            if cnt:
+                off = offsets[b, tau]
+                node_type[b, off: off + cnt] = tau
     return [1.0], node_type  # one fused "wave"
 
 
@@ -267,46 +279,52 @@ def _run_waves(drv: _Driver, filling: bool):
         if not wave:
             break
         t0 = time.perf_counter()
-        tau = np.zeros(B, np.int64)
-        for b in wave:
-            tau[b] = phases[b].type_order[k]
-        own = [phases[b].own[k][~drv.placed[b, phases[b].own[k]]]
-               if b in wave else np.zeros(0, np.int64)
-               for b in range(B)]
+        with obs.span("place.gather", host=True):
+            tau = np.zeros(B, np.int64)
+            for b in wave:
+                tau[b] = phases[b].type_order[k]
+            own = [phases[b].own[k][~drv.placed[b, phases[b].own[k]]]
+                   if b in wave else np.zeros(0, np.int64)
+                   for b in range(B)]
         lo = drv.counts.copy()
         pool = w = None
         if any(len(x) for x in own):
             L = max(len(x) for x in own)
             u_pad, seq = drv.gather(own, L, b_all, tau)
             seq = _upload(seq, drv.device)
-            pool = drv.cap_pool(seq[-1], L)
-            w0 = torch.zeros(B, dtype=torch.int32, device=drv.device)
-            w, w_np, bad, j_rec = drv.dispatch(
-                pool, w0, seq, purchase=True, similarity=drv.similarity,
-                rows=L)
-            drv.raise_bad(bad, u_pad, b_all, tau)
-            drv.apply(j_rec, u_pad, b_all, lo)
-            drv.counts += w_np
-            while int(drv.counts.max()) > node_cap:
-                node_type = np.concatenate(
-                    [node_type, np.full_like(node_type, -1)], axis=1)
-                node_cap *= 2
-            for b in wave:
-                if w_np[b]:
-                    node_type[b, lo[b]: lo[b] + w_np[b]] = tau[b]
+            with obs.span("place.dispatch"):
+                pool = drv.cap_pool(seq[-1], L)
+                w0 = torch.zeros(B, dtype=torch.int32, device=drv.device)
+                w, w_np, bad, j_rec = drv.dispatch(
+                    pool, w0, seq, purchase=True, similarity=drv.similarity,
+                    rows=L)
+            with obs.span("place.apply", host=True):
+                drv.raise_bad(bad, u_pad, b_all, tau)
+                drv.apply(j_rec, u_pad, b_all, lo)
+                drv.counts += w_np
+                while int(drv.counts.max()) > node_cap:
+                    node_type = np.concatenate(
+                        [node_type, np.full_like(node_type, -1)], axis=1)
+                    node_cap *= 2
+                for b in wave:
+                    if w_np[b]:
+                        node_type[b, lo[b]: lo[b] + w_np[b]] = tau[b]
         if filling and pool is not None:
-            fill = [phases[b].fill[k][~drv.placed[b, phases[b].fill[k]]]
-                    if b in wave and w_np[b] > 0
-                    else np.zeros(0, np.int64)
-                    for b in range(B)]
+            with obs.span("place.gather", host=True):
+                fill = [phases[b].fill[k][~drv.placed[b, phases[b].fill[k]]]
+                        if b in wave and w_np[b] > 0
+                        else np.zeros(0, np.int64)
+                        for b in range(B)]
             if any(len(x) for x in fill):
                 L = max(len(x) for x in fill)
                 u_pad, seq = drv.gather(fill, L, b_all, tau)
                 seq = _upload(seq, drv.device)
-                _, _, _, j_rec = drv.dispatch(
-                    pool, w, seq, purchase=False, similarity=False,
-                    rows=int(w_np.max()))
-                drv.apply(j_rec, u_pad, b_all, lo)
+                with obs.span("place.dispatch"):
+                    _, _, _, j_rec = drv.dispatch(
+                        pool, w, seq, purchase=False, similarity=False,
+                        rows=int(w_np.max()))
+                with obs.span("place.apply", host=True):
+                    drv.apply(j_rec, u_pad, b_all, lo)
         wave_s.append(time.perf_counter() - t0)
         k += 1
     return wave_s, node_type
@@ -333,10 +351,11 @@ def run_compiled(batch, phases, fit: str, filling: bool,
     ``spilled_lanes`` (lanes whose open rows outgrew the kernel's shared
     memory and were kept in device memory).
     """
-    drv = _Driver(batch, phases, fit, resolve_device(device))
-    # wave-mode budget: the widest wave's padded pool
-    max_own = max((len(ph.own[k]) for ph in phases
-                   for k in range(len(ph.type_order))), default=0)
+    with obs.span("place.prep", host=True):
+        drv = _Driver(batch, phases, fit, resolve_device(device))
+        # wave-mode budget: the widest wave's padded pool
+        max_own = max((len(ph.own[k]) for ph in phases
+                       for k in range(len(ph.type_order))), default=0)
     if _oversized(drv.device, batch.B * max_own * drv.K):
         if telemetry is not None:
             telemetry["engine"] = "lockstep-fallback"
@@ -367,4 +386,5 @@ def run_compiled(batch, phases, fit: str, filling: bool,
         telemetry["dispatches"] = drv.dispatches
         telemetry["spilled_lanes"] = drv.spilled_lanes
 
-    return drv.solutions(node_type, meta, fit, filling)
+    with obs.span("place.solutions", host=True):
+        return drv.solutions(node_type, meta, fit, filling)

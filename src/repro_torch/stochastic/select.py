@@ -48,10 +48,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import time
 
 import numpy as np
 
+from .. import obs
 from ..core import (FleetEngine, SolverConfig, pack_problems,
                     trim_timeline)
 from ..core.batch import dispatch_count
@@ -336,9 +336,25 @@ def plan_stochastic(forecast: DemandForecast | ScenarioSet,
     reconfiguration term of ``config.recfg_weight``.  ``device`` (None =
     the CUDA card) places the default engine only; a passed engine keeps
     its own.
+
+    The result's ``timings`` are host-clock seconds of the whole plan, in
+    order: ``fanout_s`` (the fan-out), ``lp_s`` (the scenarios' one LP
+    dispatch, trimming and packing included), ``place_s`` (trimming,
+    packing and the placement passes) and ``select_s`` (the candidate
+    menu, the overloads, every selection and frontier row).  Under a
+    ``torch.profiler`` session the call is one ``plan`` step of
+    ``repro_torch.obs``.
     """
-    scenario_set = forecast if isinstance(forecast, ScenarioSet) \
-        else fan_out(forecast, config.scenarios, config.seed)
+    with obs.span("plan"):
+        return _plan(forecast, config, engine, current_fleet, device)
+
+
+def _plan(forecast, config, engine, current_fleet, device):
+    """``plan_stochastic``'s body, inside its ``plan`` step."""
+    timings: dict = {}
+    with obs.timed("fanout", timings, "fanout_s", host=True):
+        scenario_set = forecast if isinstance(forecast, ScenarioSet) \
+            else fan_out(forecast, config.scenarios, config.seed)
     problems = list(scenario_set.problems)
     base = scenario_set.forecast.base
     node_cost = base.node_types.cost
@@ -346,66 +362,68 @@ def plan_stochastic(forecast: DemandForecast | ScenarioSet,
         engine = FleetEngine(solver=SolverConfig(tol=5e-3, iters=4000),
                              algos=(config.algo,), device=device)
 
-    t0 = time.perf_counter()
     d0 = dispatch_count()
-    lp_results, stats = engine.solve_scenarios(problems)
+    with obs.timed("lp", timings, "lp_s"):
+        lp_results, stats = engine.solve_scenarios(problems)
     lp_dispatches = dispatch_count() - d0
-    lp_s = time.perf_counter() - t0
 
     # one lockstep placement pass per fit policy over the shared-shape
     # batch; each scenario keeps its own cheapest feasible fleet
-    t0 = time.perf_counter()
-    filling = config.algo.endswith("-f")
-    trimmed = [trim_timeline(p)[0] for p in problems]
-    if config.algo.startswith("penalty-map"):
-        from ..core import penalty_map
+    with obs.timed("place", timings, "place_s"):
+        filling = config.algo.endswith("-f")
+        with obs.span("place.prep", host=True):
+            trimmed = [trim_timeline(p)[0] for p in problems]
+            batch = pack_problems(trimmed, assume_trimmed=True)
+        if config.algo.startswith("penalty-map"):
+            from ..core import penalty_map
 
-        mapsets = [[penalty_map(t, kind) for t in trimmed]
-                   for kind in ("avg", "max")]
-    else:
-        mapsets = [[r.mapping for r in lp_results]]
-    batch = pack_problems(trimmed, assume_trimmed=True)
-    K, m = len(problems), base.m
-    best_cost = np.full(K, np.inf)
-    plans = np.zeros((K, m), dtype=np.int64)
-    for maps in mapsets:
-        for fit in FIT_POLICIES:
-            sols = engine.place(batch, maps, fit=fit, filling=filling)
-            for s, (t, sol) in enumerate(zip(batch.problems, sols)):
-                c = sol.cost(t)
-                if c < best_cost[s]:
-                    best_cost[s] = c
-                    plans[s] = sol.nodes_per_type(t)
-    place_s = time.perf_counter() - t0
+            with obs.span("place.maps", host=True):
+                mapsets = [[penalty_map(t, kind) for t in trimmed]
+                           for kind in ("avg", "max")]
+        else:
+            mapsets = [[r.mapping for r in lp_results]]
+        K, m = len(problems), base.m
+        best_cost = np.full(K, np.inf)
+        plans = np.zeros((K, m), dtype=np.int64)
+        for maps in mapsets:
+            for fit in FIT_POLICIES:
+                sols = engine.place(batch, maps, fit=fit, filling=filling)
+                with obs.span("place.costs", host=True):
+                    for s, (t, sol) in enumerate(zip(batch.problems, sols)):
+                        c = sol.cost(t)
+                        if c < best_cost[s]:
+                            best_cost[s] = c
+                            plans[s] = sol.nodes_per_type(t)
 
-    fleets = candidate_fleets(plans, quantiles=config.quantiles,
-                              current=current_fleet)
-    ov = overload_costs(plans, fleets, node_cost)
-    fleet_costs = (fleets * node_cost[None, :]).sum(axis=1)
+    with obs.timed("select", timings, "select_s", host=True):
+        fleets = candidate_fleets(plans, quantiles=config.quantiles,
+                                  current=current_fleet)
+        ov = overload_costs(plans, fleets, node_cost)
+        fleet_costs = (fleets * node_cost[None, :]).sum(axis=1)
 
-    def _row(alpha: float, lam: float, j: int) -> dict:
-        r6 = lambda v: round(float(v), 6)  # noqa: E731
-        return {
-            "alpha": alpha, "lambda": lam,
-            "fleet": fleets[j].tolist(),
-            "fleet_cost": r6(fleet_costs[j]),
-            "mean_overload": r6(ov[:, j].mean()),
-            "cvar_overload": r6(cvar(ov[:, j], alpha)),
-            "worst_overload": r6(ov[:, j].max()),
-        }
+        def _row(alpha: float, lam: float, j: int) -> dict:
+            r6 = lambda v: round(float(v), 6)  # noqa: E731
+            return {
+                "alpha": alpha, "lambda": lam,
+                "fleet": fleets[j].tolist(),
+                "fleet_cost": r6(fleet_costs[j]),
+                "mean_overload": r6(ov[:, j].mean()),
+                "cvar_overload": r6(cvar(ov[:, j], alpha)),
+                "worst_overload": r6(ov[:, j].max()),
+            }
 
-    sel = dict(alpha=config.cvar_alpha, lam=config.cvar_lambda,
-               premium=config.overload_premium,
-               recfg_weight=config.recfg_weight, current=current_fleet)
-    j_exp = _select(fleets, ov, node_cost, **{**sel, "lam": 0.0})
-    frontier = [_row(config.cvar_alpha, 0.0, j_exp)]
-    alphas = sorted(set(config.frontier_alphas) | {config.cvar_alpha})
-    j_sel = j_exp
-    for alpha in alphas:
-        j = _select(fleets, ov, node_cost, **{**sel, "alpha": alpha})
-        frontier.append(_row(alpha, config.cvar_lambda, j))
-        if alpha == config.cvar_alpha:
-            j_sel = j
+        sel = dict(alpha=config.cvar_alpha, lam=config.cvar_lambda,
+                   premium=config.overload_premium,
+                   recfg_weight=config.recfg_weight, current=current_fleet)
+        j_exp = _select(fleets, ov, node_cost, **{**sel, "lam": 0.0})
+        frontier = [_row(config.cvar_alpha, 0.0, j_exp)]
+        alphas = sorted(set(config.frontier_alphas) | {config.cvar_alpha})
+        j_sel = j_exp
+        for alpha in alphas:
+            j = _select(fleets, ov, node_cost, **{**sel, "alpha": alpha})
+            frontier.append(_row(alpha, config.cvar_lambda, j))
+            if alpha == config.cvar_alpha:
+                j_sel = j
 
     return StochasticResult(
         config=config,
@@ -423,5 +441,5 @@ def plan_stochastic(forecast: DemandForecast | ScenarioSet,
         stats=list(stats),
         lp_dispatches=int(lp_dispatches),
         buckets=1,
-        timings={"lp_s": lp_s, "place_s": place_s},
+        timings=timings,
     )

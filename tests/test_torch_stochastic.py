@@ -481,8 +481,8 @@ def test_plan_stochastic_f64_summary_matches_reference():
     rows = got.to_rows()
     assert len(rows) == 8 and rows[0].keys() == want.to_rows()[0].keys()
     blob = json.loads(got.to_json())
-    assert blob["scenarios"] == rows and set(blob["timings"]) == {"lp_s",
-                                                                 "place_s"}
+    assert blob["scenarios"] == rows and set(blob["timings"]) == {
+        "fanout_s", "lp_s", "place_s", "select_s"}
     _invariants(gs)
 
 
