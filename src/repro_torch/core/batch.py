@@ -40,6 +40,7 @@ f64 polish take the cumsum form instead, as the reference does.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import warnings
@@ -47,7 +48,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import obs
+from .. import kernels, obs
 from ..device import resolve_device
 from ..kernels import lane_sum as klane
 from .lp_pdhg import PDHGResult, PDHGState, SolveStats
@@ -292,7 +293,10 @@ def _segment_sums(xw, order, lengths):
     """(B, Tp + 1, C) sums of the (B, n, C) rows of each slot, in task
     order."""
     rows = torch.gather(xw, 1, order[:, :, None].expand_as(xw))
-    return torch.segment_reduce(rows, "sum", lengths=lengths, axis=1)
+    # ``unsafe`` skips the lengths check, a host read: the lengths are the
+    # slots' counts, and a chunk captured as a CUDA graph has no host read
+    return torch.segment_reduce(rows, "sum", lengths=lengths, axis=1,
+                                unsafe=True)
 
 
 def _make_operators(w_all, start, end, Tp: int, operator: str):
@@ -509,98 +513,103 @@ def _drive(steps):
             return done.value
 
 
-def _tol_steps(w_all, start, end, feas, cost, step_scale: float, tol: float,
-               max_iters: int, check_every: int, Tp: int, operator: str,
-               adaptive: bool, restart: bool, power_iters: int, scaling: str,
-               precision: str, omega_on: bool, x0=None, y0=None,
-               eta_init=None, omega_init=None):
-    """The tol-mode solve as a generator: it yields once a chunk's
-    launches are queued, just before that chunk's host read, so a caller
-    can queue other solves' chunks on other cards first, and returns the
-    solve's tensors.
+def _tol_setup(w_all, start, end, feas, cost, step_scale: float, Tp: int,
+               operator: str, power_iters: int, scaling: str, precision: str,
+               omega_on: bool, x0=None, y0=None, eta_init=None,
+               omega_init=None):
+    """The tol loop's operands and first carry: (ops, c, fwd_all, adj_all,
+    r_sc).  ``ops`` holds the tensors a chunk reads (the scaled weights,
+    ``start``, ``end``, ``feas``, the scaled dual caps ``cost_s``, the
+    primal masses ``mass``, None unscaled, and the step clips ``eta_lo``,
+    ``eta_hi``); ``r_sc`` is the Ruiz row scaling (None unscaled).  Warm
+    arrays are in original coordinates."""
+    B, n, m, D = w_all.shape
+    dev = w_all.device
+    # every sum over a lane's elements goes through the lane-sum kernel,
+    # whose order does not depend on the batch, so a lane solved in a
+    # smaller batch (a shard of the sharded sweep pipeline) keeps its bits
+    sums = klane.lane_sum
+    it_dt = torch.float64 if precision == "f64" else torch.float32
+    cert_dt = torch.float64
+    w_all = w_all.to(it_dt)
+    cost = cost.to(it_dt)
 
-    Chunks of ``min(check_every, max_iters - k)`` attempts run without a
-    host read; after each chunk the f64 certificate, the restart test and
-    the convergence mask are computed and one host read asks whether every
-    lane has converged.  An attempt is one forward and one adjoint apply;
-    a rejected one (the ratio test) keeps the iterate, shrinks the lane's
-    step and still counts in ``k`` and the lane's iterations.  ``tol`` and
-    ``step_scale`` are float32 values (see ``_f32``).  Warm arrays (``x0``,
-    ``y0``, ``eta_init``, ``omega_init``) are in original coordinates.
+    if scaling == "ruiz":
+        c_sc, r_sc = _ruiz_scalings(w_all)
+        ws_all = w_all * (r_sc[:, None, :, None] / c_sc[:, :, None, None])
+        cost_s = cost / r_sc   # scaled dual caps (padded types stay huge)
+        mass = c_sc            # scaled primal simplex masses
+    else:
+        ws_all, cost_s, mass, r_sc = w_all, cost, None, None
 
-    Returns (x, y, primal, dual, rel_gap, iters_b, restarts_b, conv, eta,
-    omega) as tensors, x and y in original coordinates.
-    """
-    with obs.span("lp.setup"):
-        B, n, m, D = w_all.shape
-        dev = w_all.device
-        # every sum over a lane's elements goes through the lane-sum kernel,
-        # whose order does not depend on the batch, so a lane solved in a
-        # smaller batch (a shard of the sharded sweep pipeline) keeps its bits
-        sums = klane.lane_sum
-        if operator == "pallas" and precision == "f64":
-            operator = "cumsum"  # the kernel is f32; cumsum is the same map
-        it_dt = torch.float64 if precision == "f64" else torch.float32
-        cert_dt = torch.float64
-        w_all = w_all.to(it_dt)
-        cost = cost.to(it_dt)
+    fwd_all, adj_all = _make_operators(ws_all, start, end, Tp, operator)
+    op_norm = _power_op_norm(fwd_all, adj_all, feas, power_iters,
+                             sums).to(it_dt)
+    eta0 = step_scale / (op_norm + 1e-30)                     # (B,)
+    eta_lo, eta_hi = eta0 / _ETA_CLIP, eta0 * _ETA_CLIP
+    cap = cost_s[:, None, :, None]
 
-        if scaling == "ruiz":
-            c_sc, r_sc = _ruiz_scalings(w_all)
-            ws_all = w_all * (r_sc[:, None, :, None] / c_sc[:, :, None, None])
-            cost_s = cost / r_sc   # scaled dual caps (padded types stay huge)
-            mass = c_sc            # scaled primal simplex masses
-        else:
-            ws_all, cost_s, mass = w_all, cost, None
-
-        fwd_all, adj_all = _make_operators(ws_all, start, end, Tp, operator)
-        op_norm = _power_op_norm(fwd_all, adj_all, feas, power_iters,
-                                 sums).to(it_dt)
-        eta0 = step_scale / (op_norm + 1e-30)                     # (B,)
-        eta_lo, eta_hi = eta0 / _ETA_CLIP, eta0 * _ETA_CLIP
-        cap = cost_s[:, None, :, None]
-
-        x = feas.to(it_dt)
-        x = x / x.sum(dim=2, keepdim=True)
+    x = feas.to(it_dt)
+    x = x / x.sum(dim=2, keepdim=True)
+    if mass is not None:
+        x = x * mass[:, :, None]
+    if x0 is not None:
+        x = x0.to(it_dt)
         if mass is not None:
             x = x * mass[:, :, None]
-        if x0 is not None:
-            x = x0.to(it_dt)
-            if mass is not None:
-                x = x * mass[:, :, None]
-            x = _project_simplex_masked(x, feas, mass)
-        if y0 is None:
-            y = torch.zeros((B, Tp, m, D), dtype=it_dt, device=dev)
-        else:
-            y = y0.to(it_dt)
-            if scaling == "ruiz":
-                y = y / r_sc[:, None, :, None]
-            y = _project_capped_simplex_td(y, cap, sums)
-        Ax = fwd_all(x)
+        x = _project_simplex_masked(x, feas, mass)
+    if y0 is None:
+        y = torch.zeros((B, Tp, m, D), dtype=it_dt, device=dev)
+    else:
+        y = y0.to(it_dt)
+        if r_sc is not None:
+            y = y / r_sc[:, None, :, None]
+        y = _project_capped_simplex_td(y, cap, sums)
+    Ax = fwd_all(x)
 
-        eta = eta0
-        if eta_init is not None:
-            eta = torch.clamp(eta_init.to(it_dt), eta_lo, eta_hi)
-        omega = torch.ones((B,), dtype=it_dt, device=dev)
-        if omega_on and omega_init is not None:
-            omega = torch.clamp(omega_init.to(it_dt), 1.0 / _OMEGA_CLIP,
-                                _OMEGA_CLIP)
+    eta = eta0
+    if eta_init is not None:
+        eta = torch.clamp(eta_init.to(it_dt), eta_lo, eta_hi)
+    omega = torch.ones((B,), dtype=it_dt, device=dev)
+    if omega_on and omega_init is not None:
+        omega = torch.clamp(omega_init.to(it_dt), 1.0 / _OMEGA_CLIP,
+                            _OMEGA_CLIP)
 
-        zeros_b = torch.zeros((B,), dtype=it_dt, device=dev)
-        c = _TolCarry(
-            x=x, x_prev=x, Ax=Ax, Ax_prev=Ax, y=y, eta=eta, omega=omega, k=0,
-            iters_b=torch.zeros((B,), dtype=torch.int32, device=dev),
-            conv=torch.zeros((B,), dtype=torch.bool, device=dev),
-            restarts_b=torch.zeros((B,), dtype=torch.int32, device=dev),
-            gap_b=torch.full((B,), torch.inf, dtype=cert_dt, device=dev),
-            # the normalized gap starts < 1 (the dual of y=0 is 0), so 1.0
-            # anchors the first sufficient-decay restart check
-            last_gap=torch.ones((B,), dtype=cert_dt, device=dev),
-            sum_x=torch.zeros_like(x), sum_y=torch.zeros_like(y),
-            sum_Ax=torch.zeros_like(Ax), elen=zeros_b, dxs=zeros_b,
-            dys=zeros_b)
+    zeros_b = torch.zeros((B,), dtype=it_dt, device=dev)
+    c = _TolCarry(
+        x=x, x_prev=x, Ax=Ax, Ax_prev=Ax, y=y, eta=eta, omega=omega, k=0,
+        iters_b=torch.zeros((B,), dtype=torch.int32, device=dev),
+        conv=torch.zeros((B,), dtype=torch.bool, device=dev),
+        restarts_b=torch.zeros((B,), dtype=torch.int32, device=dev),
+        gap_b=torch.full((B,), torch.inf, dtype=cert_dt, device=dev),
+        # the normalized gap starts < 1 (the dual of y=0 is 0), so 1.0
+        # anchors the first sufficient-decay restart check
+        last_gap=torch.ones((B,), dtype=cert_dt, device=dev),
+        sum_x=torch.zeros_like(x), sum_y=torch.zeros_like(y),
+        sum_Ax=torch.zeros_like(Ax), elen=zeros_b, dxs=zeros_b,
+        dys=zeros_b)
+    ops = dict(ws_all=ws_all, start=start, end=end, feas=feas, cost_s=cost_s,
+               mass=mass, eta_lo=eta_lo, eta_hi=eta_hi)
+    return ops, c, fwd_all, adj_all, r_sc
 
-    def attempt(c: _TolCarry) -> None:
+
+def _tol_chunk_fns(fwd_all, adj_all, ops: dict, tol: float, adaptive: bool,
+                   restart: bool, omega_on: bool):
+    """(attempt, check) of the tol loop over ``ops`` (``_tol_setup``), each
+    acting on a ``_TolCarry``.  ``attempt(c, factors)`` takes the ratio
+    test's (shrink, growth) factors of attempt ``c.k`` (``_eta_factors``):
+    Python floats in an eager chunk, 0-dim tensors of the iterate's dtype
+    holding the same float32 values in a captured one, so every product
+    keeps its bits."""
+    cost_s, feas, mass = ops["cost_s"], ops["feas"], ops["mass"]
+    eta_lo, eta_hi = ops["eta_lo"], ops["eta_hi"]
+    B = feas.shape[0]
+    dev = feas.device
+    sums = klane.lane_sum
+    cap = cost_s[:, None, :, None]
+    cert_dt = torch.float64
+
+    def attempt(c: _TolCarry, factors) -> None:
         active = ~c.conv
         if omega_on:
             sig = (c.eta * c.omega)[:, None, None, None]
@@ -629,7 +638,7 @@ def _tol_steps(w_all, start, end, feas, cost, step_scale: float, tol: float,
             accept = c.eta <= eta_bar
             # a lane with no interaction (eta_bar = inf) must fall through
             # to the growth term, not evaluate inf * factor
-            shrink_f, grow_f = _eta_factors(c.k)
+            shrink_f, grow_f = factors
             shrink = torch.where(torch.isfinite(eta_bar), eta_bar * shrink_f,
                                  torch.inf)
             eta_next = torch.clamp(torch.minimum(shrink, c.eta * grow_f),
@@ -704,20 +713,262 @@ def _tol_steps(w_all, start, end, feas, cost, step_scale: float, tol: float,
         c.gap_b = torch.where(c.conv, c.gap_b, gap_new)
         c.conv = c.conv | (c.gap_b <= tol)
 
-    while c.k < max_iters:
-        # the final chunk shrinks to the remaining budget; no span stays
-        # open across the yield (callers interleave several solves)
-        chunk = min(check_every, max_iters - c.k)
-        with obs.span("lp.enqueue"):
-            for _ in range(chunk):
-                attempt(c)
-            check(c)
-        obs.add("lp.attempts", chunk)
-        yield
-        with obs.span("lp.wait"):
-            done = bool(c.conv.all())  # the one host read per check
-        if done:
-            break
+    return attempt, check
+
+
+# --- CUDA graphs of tol chunks ---------------------------------------------
+# A chunk queues about 330 small launches an attempt from the host, each some
+# microseconds of device work, so on a card the host's queueing sets the LP's
+# time.  A chunk has a fixed trip count and no host read, so on a CUDA device
+# it is captured once as a CUDA graph over fixed buffers and replayed.
+
+# The carry fields a chunk reads and writes (``k`` stays on the host).
+_CARRY = tuple(f.name for f in dataclasses.fields(_TolCarry)
+               if f.name != "k")
+
+# Chunk keys a device keeps, least recently used out (keys seen once, whose
+# graph is not made yet, count too): T' changes from solve to solve in a
+# fleet of trace instances, and each graph holds buffers of its own shape.
+_GRAPHS_PER_DEVICE = 4
+
+
+def _eta_table(n: int, dtype, dev) -> torch.Tensor:
+    """(n, 2) tensor of ``_eta_factors(k)`` for k < n, in ``dtype``: the
+    float32 values the eager chunks use as scalars."""
+    rows = np.array([_eta_factors(k) for k in range(n)], np.float32)
+    return torch.from_numpy(rows).to(device=dev, dtype=dtype)
+
+
+def _take_graph(graphs: collections.OrderedDict, key, make):
+    """The chunk graph of ``key`` in ``graphs``, or None where the chunk
+    runs eagerly: the key's first chunk, the warm-up a capture needs.  On
+    the key's next chunk ``make()`` captures its graph; a key whose capture
+    raises is dropped.  The newest ``_GRAPHS_PER_DEVICE`` keys stay."""
+    g = None
+    if key in graphs:
+        g = graphs.pop(key)
+        if g is None:
+            g = make()
+    graphs[key] = g
+    while len(graphs) > _GRAPHS_PER_DEVICE:
+        graphs.popitem(last=False)
+    return g
+
+
+class _DeviceGraphs:
+    """A CUDA device's chunk graphs by key (``_take_graph``), the one memory
+    pool they share (a chunk's temporaries die inside the chunk, and chunks
+    on one device run one after another), the side stream captures run on,
+    and the step-factor table by dtype."""
+
+    def __init__(self, dev: torch.device):
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self.tables: dict = {}
+        self.dev = dev
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(dev)
+
+    def table(self, n: int, dtype) -> torch.Tensor:
+        """At least n rows of ``_eta_table`` on this device."""
+        t = self.tables.get(dtype)
+        if t is None or t.shape[0] < n:
+            t = self.tables[dtype] = _eta_table(n, dtype, self.dev)
+        return t
+
+
+_DEVICE_GRAPHS: dict = {}
+
+
+def _device_graphs(dev: torch.device) -> _DeviceGraphs:
+    dg = _DEVICE_GRAPHS.get(dev)
+    if dg is None:
+        dg = _DEVICE_GRAPHS[dev] = _DeviceGraphs(dev)
+    return dg
+
+
+class _ChunkGraph:
+    """One tol chunk (``chunk`` attempts, then the check) over fixed
+    buffers: ``ops``, the operands a chunk reads (``_tol_setup``);
+    ``carry``, the carry fields it reads and writes in place; ``factors``,
+    its attempts' step factors, copied from the device's table before each
+    replay.  ``capture`` records the chunk as a CUDA graph and ``run``
+    replays it.  ``in_use``: a running solve's operands are loaded."""
+
+    def __init__(self, ops: dict, carry: _TolCarry, chunk: int, Tp: int,
+                 operator: str, tol: float, adaptive: bool, restart: bool,
+                 omega_on: bool):
+        self.ops = {k: None if v is None else torch.empty_like(v)
+                    for k, v in ops.items()}
+        self.carry = {f: torch.empty_like(getattr(carry, f))
+                      for f in _CARRY}
+        ws = ops["ws_all"]
+        self.factors = torch.empty((chunk, 2), dtype=ws.dtype,
+                                   device=ws.device)
+        self.chunk, self.Tp, self.operator = chunk, Tp, operator
+        self.flags = (tol, adaptive, restart, omega_on)
+        self.in_use = False
+        self.graph = self.launches = None
+
+    def load(self, ops: dict) -> None:
+        """Takes the buffers for one solve and copies its operands in.  A
+        solve runs its chunks to the end before the next solve of its key on
+        its device starts, so the buffers are free; a graph in use raises."""
+        if self.in_use:
+            raise RuntimeError(
+                "two tol solves of one chunk shape ran at once on one device; "
+                "its CUDA graph's buffers hold one solve at a time")
+        self.in_use = True
+        for k, v in ops.items():
+            if v is not None:
+                self.ops[k].copy_(v)
+
+    def hold(self, c: _TolCarry) -> None:
+        """Points ``c``'s fields at the carry buffers, copying in those held
+        elsewhere (after an eager chunk, or from the solve's setup)."""
+        for f, buf in self.carry.items():
+            v = getattr(c, f)
+            if v is not buf:
+                buf.copy_(v)
+                setattr(c, f, buf)
+
+    def _chunk(self) -> None:
+        """The chunk over the buffers, as a capture records it."""
+        o = self.ops
+        attempt, check = _tol_chunk_fns(
+            *_make_operators(o["ws_all"], o["start"], o["end"], self.Tp,
+                             self.operator), o, *self.flags)
+        c = _TolCarry(k=0, **self.carry)
+        for i in range(self.chunk):
+            attempt(c, (self.factors[i, 0], self.factors[i, 1]))
+        check(c)
+        for f, buf in self.carry.items():
+            v = getattr(c, f)
+            if v is not buf:
+                buf.copy_(v)
+
+    def capture(self, pool, stream) -> None:
+        """Records the chunk on ``stream`` into ``pool``.  A capture runs
+        nothing, so the launches it records leave the kernels' counts, and
+        each replay adds them.  (``torch.cuda.graph`` would also empty the
+        device's and the pinned host memory's caches before each capture,
+        which a new T' brings every solve in a fleet of trace instances.)"""
+        graph = torch.cuda.CUDAGraph()
+        marks = kernels.launch_marks()
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    self._chunk()
+                finally:
+                    graph.capture_end()
+        finally:
+            launches = kernels.rewind_launches(marks)
+        self.graph, self.launches = graph, launches
+
+    def run(self, table: torch.Tensor, k: int) -> None:
+        """The chunk from attempt ``k``: its factors copied in, then the
+        graph replayed on its device's current stream."""
+        self.factors.copy_(table[k:k + self.chunk])
+        with torch.cuda.device(self.factors.device):
+            self.graph.replay()
+        kernels.add_launches(self.launches)
+
+
+def _tol_steps(w_all, start, end, feas, cost, step_scale: float, tol: float,
+               max_iters: int, check_every: int, Tp: int, operator: str,
+               adaptive: bool, restart: bool, power_iters: int, scaling: str,
+               precision: str, omega_on: bool, x0=None, y0=None,
+               eta_init=None, omega_init=None):
+    """The tol-mode solve as a generator: it yields once a chunk's
+    launches are queued, just before that chunk's host read, so a caller
+    can queue other solves' chunks on other cards first, and returns the
+    solve's tensors.
+
+    Chunks of ``min(check_every, max_iters - k)`` attempts run without a
+    host read; after each chunk the f64 certificate, the restart test and
+    the convergence mask are computed and one host read asks whether every
+    lane has converged.  An attempt is one forward and one adjoint apply;
+    a rejected one (the ratio test) keeps the iterate, shrinks the lane's
+    step and still counts in ``k`` and the lane's iterations.  ``tol`` and
+    ``step_scale`` are float32 values (see ``_f32``).  Warm arrays (``x0``,
+    ``y0``, ``eta_init``, ``omega_init``) are in original coordinates.
+
+    On a CUDA device a chunk runs as a CUDA graph (``_ChunkGraph``), keyed
+    by the shapes, the iterate's dtype, operator, flags, ``tol`` and chunk
+    length: a key's first chunk runs eagerly, its next one is captured and
+    replayed, and every later one, in this solve or another, replays.  The
+    graph runs the same launches on the same values, so every lane's result
+    keeps its bits.
+
+    Returns (x, y, primal, dual, rel_gap, iters_b, restarts_b, conv, eta,
+    omega) as tensors, x and y in original coordinates.
+    """
+    with obs.span("lp.setup"):
+        B, n, m, D = w_all.shape
+        dev = w_all.device
+        if operator == "pallas" and precision == "f64":
+            operator = "cumsum"  # the kernel is f32; cumsum is the same map
+        ops, c, fwd_all, adj_all, r_sc = _tol_setup(
+            w_all, start, end, feas, cost, step_scale, Tp, operator,
+            power_iters, scaling, precision, omega_on, x0, y0, eta_init,
+            omega_init)
+        it_dt = c.x.dtype
+        attempt, check = _tol_chunk_fns(fwd_all, adj_all, ops, tol, adaptive,
+                                        restart, omega_on)
+        graphs = _device_graphs(dev) if dev.type == "cuda" else None
+        key = (B, n, m, D, Tp, it_dt, operator, adaptive, restart, omega_on,
+               scaling, tol)
+
+    def capture(chunk):
+        with obs.span("lp.capture"):
+            g = _ChunkGraph(ops, c, chunk, Tp, operator, tol, adaptive,
+                            restart, omega_on)
+            g.capture(graphs.pool, graphs.stream)
+        obs.add("lp.graph_captures")
+        return g
+
+    held: list[_ChunkGraph] = []
+    try:
+        while c.k < max_iters:
+            # the final chunk shrinks to the remaining budget; no span stays
+            # open across the yield (callers interleave several solves)
+            chunk = min(check_every, max_iters - c.k)
+            with obs.span("lp.enqueue"):
+                g = None if graphs is None else _take_graph(
+                    graphs.graphs, key + (chunk,), lambda: capture(chunk))
+                if g is None:
+                    for _ in range(chunk):
+                        attempt(c, _eta_factors(c.k))
+                    check(c)
+                    obs.add("lp.chunks_eager")
+                else:
+                    if g not in held:
+                        g.load(ops)
+                        held.append(g)
+                    g.hold(c)
+                    g.run(graphs.table(max_iters, it_dt), c.k)
+                    c.k += chunk
+                    obs.add("lp.graph_replays")
+            obs.add("lp.attempts", chunk)
+            yield
+            with obs.span("lp.wait"):
+                done = bool(c.conv.all())  # the one host read per check
+            if done:
+                break
+        # the graphs' buffers serve the next solve of their key
+        for f in _CARRY:
+            v = getattr(c, f)
+            if any(v is g.carry[f] for g in held):
+                setattr(c, f, v.clone())
+    finally:
+        for g in held:
+            g.in_use = False
+
+    sums = klane.lane_sum
+    cert_dt = torch.float64
+    ws_all, cost_s, mass = ops["ws_all"], ops["cost_s"], ops["mass"]
+    cap = cost_s[:, None, :, None]
 
     with obs.span("lp.polish"):
         if precision == "mixed":
@@ -761,7 +1012,7 @@ def _tol_steps(w_all, start, end, feas, cost, step_scale: float, tol: float,
 
         if scaling == "ruiz":
             # back to original coordinates: callers never see the scales
-            x_fin = x_fin / c_sc[:, :, None]
+            x_fin = x_fin / mass[:, :, None]
             y_fin = y_fin * r_sc[:, None, :, None]
         return (x_fin, y_fin, primal, dual, rel_gap, c.iters_b, c.restarts_b,
                 c.conv, c.eta, c.omega)
@@ -1013,17 +1264,23 @@ def _run_shards(steps, shards):
     gens = [steps(d, lanes) for d, lanes in shards]
     results: list = [None] * len(gens)
     running = list(range(len(gens)))
-    with torch.no_grad():
-        while running:
-            for i in list(running):
-                d = shards[i][0]
-                with (torch.cuda.device(d) if d.type == "cuda"
-                      else contextlib.nullcontext()):
-                    try:
-                        next(gens[i])
-                    except StopIteration as done:
-                        results[i] = done.value
-                        running.remove(i)
+    try:
+        with torch.no_grad():
+            while running:
+                for i in list(running):
+                    d = shards[i][0]
+                    with (torch.cuda.device(d) if d.type == "cuda"
+                          else contextlib.nullcontext()):
+                        try:
+                            next(gens[i])
+                        except StopIteration as done:
+                            results[i] = done.value
+                            running.remove(i)
+    finally:
+        # a shard that raised leaves the others suspended: closing them
+        # gives their chunk graphs back to the next solve of their key
+        for gen in gens:
+            gen.close()
     return results
 
 
@@ -1043,15 +1300,20 @@ def _sweep_pipeline(groups, pad_to, tol, iters, step_scale, operator,
     frozen, and every sum over a lane's elements goes through the lane-sum
     kernel, whose order does not depend on the batch, so every lane's
     result is the unsharded run's bit for bit: on the CPU, and on cards
-    with the ``pallas`` operator (checked on four H100s; ``cumsum`` and
-    ``dense`` run torch's segment sums and cuBLAS products there, which
-    are not checked at other batch sizes).  The operator form and the
-    padded shape are chosen once, from the whole group.  On cards the
-    sharded chain is at present slower than one card (four H100 80GB HBM3
-    at 700 W took 2.85x-6.97x the one-card LP time in three runs, PERF.md
-    section 6): the tol loop is bound by kernel launches, and this one host
-    thread issues every shard's; sharding pays only once a CUDA graph of
-    one tol chunk makes launches cheap (ROADMAP Queue 2, follow-up 1)."""
+    with the ``pallas`` operator (checked on four H100s, eager and with
+    the chunks as graphs; ``cumsum`` and ``dense`` run torch's segment sums
+    and cuBLAS products there, which are not checked at other batch sizes).
+    The operator form and the padded shape are chosen once, from the whole
+    group.  Before the tol chunks ran as CUDA graphs the sharded chain was
+    slower on cards than on one (four H100 80GB HBM3 at 700 W took
+    2.85x-6.97x the one-card LP time in three runs, PERF.md section 6): the
+    tol loop was bound by kernel launches, which this one host thread
+    issued for every shard.  With the chunks as graphs each card captures
+    and replays its own shard's chunks between the generators' ``yield``s,
+    so the host queues one replay a chunk a card: bit-equal on two and four
+    H100s, the per-card launch counts as eager on four.  Its time on
+    several cards is not measured apart from each card's warm-up and first
+    capture."""
     sizes = {len(g) for g in groups}
     if len(sizes) != 1:
         raise ValueError(

@@ -200,12 +200,13 @@ class SweepConfig:
     runs there); d must divide k, and more shards than visible cards raise
     ``ValueError`` at dispatch (the session's device is known only then).
     Every lane's result is the unsharded chain's bit for bit (on cards with
-    the ``pallas`` operator).  On cards it is at present slower than one
-    card (four H100 80GB HBM3 at 700 W took 2.85x-6.97x the one-card LP
-    time in three runs): the tol loop is bound by kernel launches and one
-    host thread issues every shard's, so it pays only once a CUDA graph of
-    a tol chunk makes launches cheap (ROADMAP Queue 2, follow-up 1).  None
-    runs the chain on the session's device.  warm_start excludes
+    the ``pallas`` operator).  Before the tol chunks ran as CUDA graphs it
+    was slower on cards than one card (four H100 80GB HBM3 at 700 W took
+    2.85x-6.97x the one-card LP time in three runs): one host thread issued
+    every shard's launches.  With the chunks as graphs each card replays
+    its own (bit-equal on two and four H100s); its time there is not
+    measured apart from each card's warm-up and capture.  None runs the
+    chain on the session's device.  warm_start excludes
     max_buckets > 1 and shard_size: the chain packs every group to one
     common shape.
 

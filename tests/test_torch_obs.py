@@ -110,7 +110,9 @@ def test_one_step_with_every_phase(fleet_run, plan_run, which):
     want = EVALUATE if which == "evaluate" else PLAN
     assert set(steps[0]["spans"]) == want
     counters = steps[0]["counters"]
-    assert set(counters) == {"lp.attempts", "place.upload_bytes"}
+    # on the CPU every chunk runs eagerly (no CUDA graph)
+    assert set(counters) == {"lp.attempts", "lp.chunks_eager",
+                             "place.upload_bytes"}
     assert all(v > 0 for v in counters.values())
 
 
